@@ -50,7 +50,7 @@ def _measure(name, width, height, bounces=3, max_seconds=60.0):
     dev = compile_scene(scenes.build(name))
     r = Renderer(dev, RenderConfig(width=width, height=height,
                                    nb_bounces=bounces, tile_rays=1 << 17,
-                                   use_pallas=False, passes_per_call=1))
+                                   route="dense", passes_per_call=1))
     t0 = time.perf_counter()
     r.render_pass()                      # compile + warm
     float(jnp.sum(r._acc))

@@ -44,7 +44,6 @@ def main():
     if args.cpu_virtual:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", args.cpu_virtual)
-    import jax.numpy as jnp
 
     from montecarlo_pathtracing_tpu.scene import scenes
     from montecarlo_pathtracing_tpu.scene.device import compile_scene
@@ -83,14 +82,11 @@ def main():
         dev = compile_scene(scenes.build(args.scene))
         r = Renderer(dev, RenderConfig(
             width=w, height=h, nb_bounces=args.bounces,
-            tile_rays=1 << 17, use_pallas=platform == "tpu",
+            tile_rays=1 << 17,
             shard_devices=n if n > 1 else 0, passes_per_call=1))
-        r.render_pass()
-        float(jnp.sum(r._acc))             # sync
+        r.advance(1)                       # compile; returns when done
         t0 = time.perf_counter()
-        for _ in range(args.passes):
-            r.render_pass()
-        float(jnp.sum(r._acc))
+        r.advance(1 + args.passes)
         dt = time.perf_counter() - t0
         rps = rays / dt
         if base is None:

@@ -1,22 +1,18 @@
 """Large-scene scaling curve: rays/s vs analytic primitive count.
 
 The reference's per-ray BVH walk supports ~2^27 prims (29-deep stacks,
-shaders/raytracer_func.frag:644,736). This framework's whole-pass
-megakernel holds up to 4096 prims in its SMEM table; beyond that the
-fused bounce kernel (models/bounce_kernel.py) streams 128-prim Morton
-chunks from HBM behind per-tile front-to-back walks — scene size is
-bounded by HBM, not SMEM/VMEM. This sweep renders the procedural stress
-scene at prim counts spanning both handoffs (and the round-4 cliff
-boundary at 1024->1026, now erased) out to 102400 prims, recording
-throughput per count.
+shaders/raytracer_func.frag:644,736). This sweep renders the procedural
+stress scene at prim counts out to 102400 on the route the renderer
+picks (models/montecarlo.choose_route), recording throughput per count.
 
-Usage (on the TPU host):  python benchmarks/stress_curve.py
+Usage:  python benchmarks/stress_curve.py
 Writes benchmarks/stress_curve.json.
 """
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -31,14 +27,12 @@ def main(counts=(256, 1024, 1026, 2048, 4096, 4100, 10240, 40960, 102400),
         enable_compilation_cache)
     enable_compilation_cache()
     import jax
-    import jax.numpy as jnp
     from montecarlo_pathtracing_tpu.scene.scenes import scene_stress
     from montecarlo_pathtracing_tpu.scene.device import compile_scene
     from montecarlo_pathtracing_tpu.render.renderer import (
         RenderConfig, Renderer)
     from montecarlo_pathtracing_tpu.render.camera import default_rt_camera
-    from montecarlo_pathtracing_tpu.models.megakernel import mega_eligible
-    from montecarlo_pathtracing_tpu.models.bounce_kernel import fused_eligible
+    from montecarlo_pathtracing_tpu.models.montecarlo import choose_route
 
     platform = jax.devices()[0].platform
     results = []
@@ -48,36 +42,26 @@ def main(counts=(256, 1024, 1026, 2048, 4096, 4100, 10240, 40960, 102400),
         ext = np.sqrt(max(n - 2, 1)) * 12.0
         zoom = max(1.0, 2.3 * ext / 145.0)
         cfg = RenderConfig(width=width, height=height, nb_bounces=bounces,
-                           tile_rays=1 << 17, passes_per_call=1,
-                           use_pallas=platform == "tpu")
+                           tile_rays=1 << 17, passes_per_call=passes)
         proj, view = default_rt_camera(cfg.render_width, cfg.render_height,
                                        pitch=-40.0, zoom=zoom)
         r = Renderer(dev, cfg, proj, view)
+        # advance() returns after block_until_ready on the accumulator
         t0 = time.perf_counter()
-        r.render_pass()
-        float(jnp.sum(r._acc))
+        r.advance(passes)
         compile_s = time.perf_counter() - t0
-        best = float("inf")
-        for _ in range(3):
+        wins = []
+        for _ in range(5):
             t0 = time.perf_counter()
-            for _ in range(passes):
-                r.render_pass()
-            float(jnp.sum(r._acc))
-            best = min(best, time.perf_counter() - t0)
+            r.advance(r.nb_passes + passes)
+            wins.append(time.perf_counter() - t0)
+        dt = statistics.median(wins)
         rays = width * height * passes * bounces
-        if platform != "tpu":
-            route = "dense-xla"
-        elif mega_eligible(dev):
-            route = "megakernel"
-        elif fused_eligible(dev):
-            route = "fused-bounce"
-        else:
-            route = "worklist"
         row = {
             "n_prims": int(dev.nb_prims),
-            "route": route,
-            "rays_per_s": round(rays / best, 1),
-            "mrays_per_s": round(rays / best / 1e6, 2),
+            "route": choose_route(dev),
+            "rays_per_s": rays / dt,
+            "window_times_s": wins,
             "compile_s": round(compile_s, 1),
             "img_mean": round(float(r.image().mean()), 5),
         }
@@ -87,14 +71,8 @@ def main(counts=(256, 1024, 1026, 2048, 4096, 4100, 10240, 40960, 102400),
     out = {
         "config": {"width": width, "height": height, "bounces": bounces,
                    "passes": passes, "platform": platform,
+                   "device_kind": jax.devices()[0].device_kind,
                    "scene": "scene_stress (jittered sphere/cube field)"},
-        "note": ("rays/s vs prim count across the megakernel->fused "
-                 "handoff (4096 prims, the SMEM prim-table cap). Beyond "
-                 "it the fused bounce kernel streams 128-prim Morton "
-                 "chunks from HBM behind per-tile front-to-back walks, "
-                 "so cost grows with surviving (tile, chunk) pairs, not "
-                 "prim count — the curve quantifies how sublinear that "
-                 "is for a field scene, out to 102400 prims."),
         "results": results,
     }
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),

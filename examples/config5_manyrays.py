@@ -54,14 +54,13 @@ def main():
         w, h, spp = 320, 180, 32
     else:
         w, h, spp = args.width, args.height, args.spp
-    on_tpu = jax.devices()[0].platform == "tpu"
     os.makedirs(args.out, exist_ok=True)
     ckpt = os.path.join(args.out, "manyrays_state.npz")
     if os.path.exists(ckpt):
         os.remove(ckpt)
 
     cfg = RenderConfig(width=w, height=h, nb_bounces=args.bounces,
-                       refract_ind=1.0, use_pallas=on_tpu,
+                       refract_ind=1.0,
                        tile_rays=1 << 17, passes_per_call=8)
     scene = scenes.build("colonnes", light_intensity=1.2)
     from montecarlo_pathtracing_tpu.render.camera import default_rt_camera

@@ -75,7 +75,6 @@ def main():
         default_rt_camera, camera_rays)
     from montecarlo_pathtracing_tpu.models.montecarlo import raytrace
 
-    on_tpu = jax.devices()[0].platform == "tpu"
     spp = args.spp
 
     prev_poses = {}
@@ -100,7 +99,7 @@ def main():
             def body(k, acc):
                 return acc + raytrace(
                     dev, origin, dirs, tc, k, nb_bounces=6,
-                    refract_ind=jnp.float32(1.0), use_pallas=on_tpu)
+                    refract_ind=jnp.float32(1.0))
             acc = jax.lax.fori_loop(
                 0, n, body, jnp.zeros((dirs.shape[0], 3), jnp.float32))
             return acc / n

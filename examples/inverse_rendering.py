@@ -3,16 +3,15 @@
 Renders a target image of the box_balls scene (all four material cases
 live there), perturbs one cube's albedo + roughness AND the global
 refraction index, then recovers all three: albedo by Adam descent on
-the pixel MSE with the exact detached-sampling gradients (Pallas fast
-path), roughness and IOR by deterministic coordinate scans on forward
+the pixel MSE with the exact detached-sampling gradients, roughness and IOR by deterministic coordinate scans on forward
 renders — the loss is deterministic (fixed per-pass RNG seeds), and AD
 is knowably wrong for those two scalars (the detached estimator drops
 the roughness-through-sampling pathway; the clamped-Schlick quirk
-zeroes the fast-route IOR pathway). Two interleaved stages resolve the
+zeroes most of the IOR pathway). Two interleaved stages resolve the
 coupling. Writes target / initial / recovered PNGs and the loss curve
 to examples/captures/.
 
-  python examples/inverse_rendering.py            # 800x600 on TPU
+  python examples/inverse_rendering.py            # 800x600
   python examples/inverse_rendering.py --cpu --quick
 """
 from __future__ import annotations
@@ -28,7 +27,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--steps", type=int, default=120)
@@ -38,7 +37,7 @@ def main():
                     help="64x48, 30 steps")
     ap.add_argument("--outdir", default=os.path.join(
         os.path.dirname(__file__), "captures"))
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     import jax
     if args.cpu:
@@ -61,8 +60,6 @@ def main():
     else:
         w, h, steps = args.width, args.height, args.steps
     os.makedirs(args.outdir, exist_ok=True)
-    on_tpu = jax.devices()[0].platform == "tpu"
-    fast = on_tpu
 
     dev = compile_scene(scenes.build("box_balls"))
     proj, view = default_rt_camera(w, h)
@@ -82,8 +79,7 @@ def main():
     ior_true = 1.35
     p_true = params_of(dev, refract_ind=ior_true)
     t0 = time.perf_counter()
-    target = render_mean(dev, p_true, origin, dirs, tc, 4, 6,
-                         "montecarlo", fast)
+    target = render_mean(dev, p_true, origin, dirs, tc, 4, 6)
     write_png(f"{args.outdir}/inv_target.png",
               np.asarray(target).reshape(h, w, 3))
 
@@ -94,8 +90,7 @@ def main():
         mat=p_true.mat.at[target_prim, 1].set(0.9),
         refract_ind=jnp.float32(1.05),
     )
-    init_img = render_mean(dev, p0, origin, dirs, tc, 4, 6,
-                           "montecarlo", fast)
+    init_img = render_mean(dev, p0, origin, dirs, tc, 4, 6)
     write_png(f"{args.outdir}/inv_initial.png",
               np.asarray(init_img).reshape(h, w, 3))
 
@@ -107,13 +102,12 @@ def main():
     # a wrong direction for those two scalars. But the loss is
     # DETERMINISTIC (fixed per-pass RNG seeds), so the two scalars are
     # recovered by exact coordinate scans with parabolic refinement on
-    # forward renders (fast path — no gradients needed), interleaved
+    # forward renders (no gradients needed), interleaved
     # with albedo-only AD stages whose gradients ARE exact.
     losses = []
 
     def loss_of(p):
-        img = render_mean(dev, p, origin, dirs, tc, 4, 6,
-                          "montecarlo", fast)
+        img = render_mean(dev, p, origin, dirs, tc, 4, 6)
         return float(jnp.mean((img - target) ** 2))
 
     def scan_scalar(p, put, lo, hi, coarse=13, refine=3):
@@ -149,7 +143,7 @@ def main():
     p_fit = p0
     ad_steps = max(10, steps // 3)
     for stage in range(2):
-        # albedo via AD (exact detached-sampling gradients, fast path)
+        # albedo via AD (exact detached-sampling gradients)
         p_fit, la = inverse_render_fit(
             dev, target, origin, dirs, tc, prim_ids=[target_prim],
             steps=ad_steps, lr=5e-2, n_passes=4, nb_bounces=6,
@@ -186,15 +180,15 @@ def main():
                                 max(0.0, lo), min(1.0, lo + 0.3),
                                 coarse=11, refine=5)
 
-    final = render_mean(dev, p_fit, origin, dirs, tc, 4, 6,
-                        "montecarlo", fast)
+    final = render_mean(dev, p_fit, origin, dirs, tc, 4, 6)
     write_png(f"{args.outdir}/inv_recovered.png",
               np.asarray(final).reshape(h, w, 3))
     wall = time.perf_counter() - t0
 
     out = {
         "scene": "box_balls", "width": w, "height": h, "steps": steps,
-        "platform": jax.devices()[0].platform, "fast_path": bool(fast),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
         "wall_s": round(wall, 1),
         "loss_curve": [round(x, 6) for x in losses],
         "true": {

@@ -200,7 +200,6 @@ def main():
     from montecarlo_pathtracing_tpu.render.renderer import (
         RenderConfig, Renderer)
 
-    on_tpu = jax.devices()[0].platform == "tpu"
     # 800x625 matches the capture viewport's 1.28 aspect (1280x1000)
     w, h, spp = (200, 150, 16) if args.quick else (800, 625, args.spp)
     os.makedirs(args.out, exist_ok=True)
@@ -233,7 +232,7 @@ def main():
             view = tf.rotate_z(roll).astype(np.float32) @ view
         r = Renderer(dev, RenderConfig(
             width=w, height=h, nb_bounces=args.bounces,
-            refract_ind=args.ior, use_pallas=on_tpu, tile_rays=1 << 17),
+            refract_ind=args.ior, tile_rays=1 << 17),
             proj, view)
         img = r.run(spp)
         png = os.path.join(args.out, f"{name}.png")

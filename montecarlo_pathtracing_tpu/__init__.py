@@ -1,16 +1,17 @@
-"""montecarlo_pathtracing_tpu — TPU-native differentiable Monte Carlo path tracer.
+"""montecarlo_pathtracing_tpu — a differentiable Monte Carlo path tracer in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 OpenGL path tracer (ksaintmarc/Montecarlo-PathTracing): progressive Monte
 Carlo path tracing of analytic-primitive + triangle-mesh scenes with the
 4-case material model (diffuse / reflective / refractive / mixed), BVH
-acceleration, multi-chip ray sharding over a `jax.sharding.Mesh`, and an
+acceleration, multi-device ray sharding over a `jax.sharding.Mesh`, and an
 end-to-end differentiable render path.
 
-Layer map (TPU-first, not a port):
+Layer map (not a port):
   ops/       device math: RNG, intersectors, sampling, trace fold, shading
+  models/    integrators (the reference's tp/*.frag carousel) and the
+             whole-pass Pallas-Triton kernel for analytic scenes on a GPU
   scene/     host scene builder, BVH builder, demo scenes, device compile
-  models/    integrators (the reference's tp/*.frag carousel)
   render/    camera + progressive renderer + checkpointing
   parallel/  device-mesh sharding of the ray batch
   utils/     transforms, PNG IO

@@ -4,8 +4,8 @@ The reference's `draw_rt_ = false` mode renders the same scene data
 through an independent path (phong-lit analytic prims, instanced mesh
 triangles pulled from the scene textures, BVH wire boxes at a selectable
 level — MontecarloGPU/montecarlo.cpp:478-561, shaders/{phong,mesh_phong,
-bb}.*) to validate the encoding against the ray-traced result. The TPU
-analogs validate the same things headlessly:
+bb}.*) to validate the encoding against the ray-traced result. The
+analogs here validate the same things headlessly:
 
   - first_hit_views: albedo / shading-normal / depth / prim-id images
     from one trace + intersection_info — independent of the integrator's
@@ -91,9 +91,8 @@ def _cache_bvh(scene, bvh):
 def scene_bvh(scene):
     """Heap-format scene BVH (exact bvh.cpp:34-93 layout) built on demand
     from the DeviceScene's padded world AABBs. Debug-only: no trace path
-    consumes the heap BVH (the frontier culls use Morton chunk/super
-    boxes — ops/worklist.py, ops/sparse_trace.py), so DeviceScene does
-    not carry it. Centers reproduce compile_scene's exactly:
+    consumes the heap BVH (the whole-pass kernel culls with per-prim and
+    super boxes, models/megakernel.py), so DeviceScene does not carry it. Centers reproduce compile_scene's exactly:
     prim_bb returns ((mn + mx) / 2, mn, mx) (scene/scene.py:190-206)."""
     key = id(scene)
     if key not in _BVH_CACHE:

@@ -1,4 +1,4 @@
-"""Hemisphere-sampling visualizer — the DrawSampling app, TPU style.
+"""Hemisphere-sampling visualizer — the DrawSampling app, headless.
 
 Reimplements DrawSampling/draw_sampling.cpp (SamplingViewer, :64-175): the
 reference draws 1000 x NB sampled directions as GL_POINTS around a chosen

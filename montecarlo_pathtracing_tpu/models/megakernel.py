@@ -1,41 +1,44 @@
-"""Whole-path Pallas megakernel: the full bounce loop in VMEM.
+"""Whole-pass path-tracing kernel: the full bounce loop in one Pallas call.
 
-The SoA integrator (models/montecarlo.py) already keeps trace fast via the
-fused kernels, but between traces every bounce streams ~dozens of [N]
-arrays through HBM (sampling, ONB, Schlick, the 4-case material logic,
-masked RNG counters) — measured ~12 ms/bounce at 800x600 on one chip while
-the trace itself costs 1.5 ms. This kernel fuses the ENTIRE pass:
+The dense route (models/montecarlo.py over ops/trace.py) runs every
+bounce as a chain of XLA fusions, so the ~20 per-ray state arrays and the
+winner attributes of each closest-hit fold round-trip through device
+memory many times per bounce. This kernel fuses the ENTIRE pass:
 
-    rgb = megakernel(d, uv)      # one pallas_call, one HBM round trip
+    rgb = megakernel(d, uv)      # one pallas_call, rays in, rgb out
 
-Per (TILE_ROWS, 128)-ray block everything lives in vector registers /
-VMEM: xxhash32 counters, hemisphere sampling, the per-bounce closest-hit
-fold, normal reconstruction, the material cases, and the progressive-seed
-schedule. HBM traffic collapses to rays-in (5 f32/ray) + rgb-out
-(3 f32/ray).
+It is written for Pallas through Triton and runs one ray per GPU thread,
+the shape of the reference's fragment shader (tp/montecarlo.frag): a 1-D
+block of BLOCK rays per program, a grid over ray blocks, and every
+per-ray value (xxhash32 counters, hemisphere sampling, the closest-hit
+fold, normal reconstruction, the material cases, the progressive-seed
+schedule) held in registers as loop carries. Device-memory traffic is
+rays in (5 f32/ray) plus rgb out (3 f32/ray) plus the scene tables,
+which every ray of a block reads at the same address (broadcast loads
+served from L1/L2).
 
-Scene representation: one SMEM table [38, P] of per-prim scalars
+Scene representation: a flattened [38, P] table of per-prim scalars
 (12 inverse-transform rows, 12 forward rows, shin/rough/emis, rgba, an
 ok flag masking group-padding columns, and the prim's world AABB) with a
-static (shape_code, start, count) descriptor per homogeneous group. The
-closest-hit fold is scalar-over-prims x vector-over-rays (a lax.fori_loop
-of ~120 VPU ops per prim, every op a full (R,128) vreg), and on scenes
-with >= MEGA_CULL_MIN_PRIMS each prim is guarded by an AABB slab test
-against the whole ray block (@pl.when skip) — per-PRIM frontier culling,
-the finest-grained TPU answer to the reference's BVH stack walk
-(intersect_bvh, raytracer_func.frag:734-769). Meshes and very large
-scenes route to the chunked kernels in ops/pallas_trace.py instead (see
-mega_eligible).
+static (shape_code, start, count, super_start) descriptor per homogeneous
+group. The closest-hit fold is scalar-over-prims x vector-over-rays (a
+lax.fori_loop of ~120 ops per prim), and on scenes with
+>= MEGA_CULL_MIN_PRIMS each prim is guarded by an AABB slab test against
+the whole ray block (a block-uniform lax.cond skip), with a two-level
+hierarchy of MEGA_SUPER-prim super boxes above it visited nearest-first —
+frontier culling in place of the reference's per-ray BVH walk
+(intersect_bvh, raytracer_func.frag:734-769).
 
 The fold carries the winner's ATTRIBUTES (normal, hit point, material,
-color) instead of its index, so shading needs no gathers at all — the
-TPU answer to the GLSL's global `closest_intersection` struct + texture
-reads (shaders/raytracer_func.frag:257-271,171-233).
+color) instead of its index, so shading needs no gathers — the analog of
+the GLSL's global `closest_intersection` struct
+(shaders/raytracer_func.frag:257-271,171-233).
 
 Semantics are tp/montecarlo.frag:100-188 exactly, with the identical
 masked-counter draw schedule as models/montecarlo.py — see that module
 and models/montecarlo_aos.py for quirk commentary. Parity is asserted in
-tests/test_megakernel.py against the SoA integrator.
+tests/test_megakernel.py against the dense route (interpret mode) and by
+chip_smoke.py on the card.
 """
 from __future__ import annotations
 
@@ -45,22 +48,26 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from ..ops.intersect import (
-    FLT_MAX, CODE_SPHERE, CODE_CUBE, CODE_CYLINDER, CODE_CONE,
-    CODE_ORIENTED_QUAD,
+    FLT_MAX, CODE_SPHERE, CODE_CUBE, CODE_CYLINDER, CODE_CONE, SOA_FNS,
 )
-from ..ops.pallas_trace import _SOA_FNS
 from ..ops import rng as _rng
 
-TILE_ROWS = 32             # rays per tile = TILE_ROWS * 128
-LANES = 128
-MEGA_MAX_PRIMS = 4096      # SMEM table cap: 38 * 4096 * 4B = 608 KB of
-                           # the chip's 1 MB SMEM (an 8192 table fails
-                           # to allocate — measured round 5)
-MEGA_CULL_MIN_PRIMS = 64   # per-prim AABB culling pays for itself above this
-MEGA_SUPER = 16            # prims per super-box (the outer culling level)
+# Measured on an H100 through Renderer.advance (benchmarks/kernel_sweep.py,
+# PERF.md). Rays per program, one ray per thread: one warp. Smaller
+# blocks cull more precisely (the block-uniform AABB skips) and diverge
+# less: 32/1 is 1.65x faster than 128/4 on colonnes and ties on box_diffuse.
+BLOCK = 32
+NUM_WARPS = 1
+N_ROWS = 38                # rows of the per-prim table (see _mega_table)
+# AABB culling measured slower on the 9- and 14-prim boxes and 4x / 9x
+# faster at 122 / 895 prims; the crossover lies between 14 and 122.
+MEGA_CULL_MIN_PRIMS = 64
+# prims per super box (the outer culling level): 16 beat 8 and 32 on
+# materials and colonnes
+MEGA_SUPER = 16
 
 U32 = jnp.uint32
 _ADV0 = np.uint32(_rng.ADVANCE[0])
@@ -68,6 +75,7 @@ _ADV1 = np.uint32(_rng.ADVANCE[1])
 _ADV2 = np.uint32(_rng.ADVANCE[2])
 _MANT = np.uint32(0x007FFFFF)
 _ONEF = np.uint32(0x3F800000)
+INF = np.float32(3e38)
 
 PI = np.float32(2.0 * np.arccos(0.0))
 BIAS = np.float32(1e-2)            # raytracer_func.frag:14
@@ -76,7 +84,7 @@ SKY_HIGH = (1.0, 1.0, 0.8)
 
 
 # --------------------------------------------------------------------------
-# block-SoA helpers (vec3 = tuple of (R,128) blocks)
+# per-ray vec3 helpers (vec3 = tuple of [BLOCK] arrays)
 # --------------------------------------------------------------------------
 
 def _vwhere(m, a, b):
@@ -115,6 +123,11 @@ def _refract_glsl(i, n, eta):
     return _vwhere(k < 0.0, (z, z, z), out)
 
 
+def _block_any(mask):
+    """Block-uniform OR of a per-ray mask (Triton lowers no reduce_or)."""
+    return jnp.max(mask.astype(jnp.int32)) > 0
+
+
 # --------------------------------------------------------------------------
 # in-register xxhash32 RNG (bit-identical to ops/rng.py)
 # --------------------------------------------------------------------------
@@ -136,7 +149,7 @@ def _draw(state, mask):
     s0, s1, s2 = state
     m = _hash_blocks(s0, s1, s2)
     m = (m & _MANT) | _ONEF
-    f = pltpu.bitcast(m, jnp.float32) - np.float32(1.0)
+    f = jax.lax.bitcast_convert_type(m, jnp.float32) - np.float32(1.0)
     new = (s0 + _ADV0, s1 + _ADV1, s2 + _ADV2)
     state = tuple(jnp.where(mask, n, s) for n, s in zip(new, state))
     return f, state
@@ -178,249 +191,173 @@ def _safe_rcp(x):
     return sgn / jnp.maximum(jnp.abs(x), tiny)
 
 
-def _trace_fold(groups, tab, sbb, ordr, o, d, n_prev, p_prev, scr, cull,
-                ord_base=0):
+def _slab(lo, hi, o, rd, best):
+    """Per-ray: does the ray enter box [lo, hi] no farther than `best`?"""
+    t0 = [(lo[k] - o[k]) * rd[k] for k in range(3)]
+    t1 = [(hi[k] - o[k]) * rd[k] for k in range(3)]
+    tmin = jnp.maximum(
+        jnp.maximum(jnp.minimum(t0[0], t1[0]), jnp.minimum(t0[1], t1[1])),
+        jnp.maximum(jnp.minimum(t0[2], t1[2]), 0.0))
+    tmax = jnp.minimum(
+        jnp.minimum(jnp.maximum(t0[0], t1[0]), jnp.maximum(t0[1], t1[1])),
+        jnp.maximum(t0[2], t1[2]))
+    return (tmax >= tmin) & (tmin <= best)
+
+
+def _prim_candidate(code, tab, c, o, d):
+    """World distance, shading normal and hit point of prim column c."""
+    iv = [tab(r, c) for r in range(12)]
+    tf = [tab(r + 12, c) for r in range(12)]
+    # local-frame ray (scalar affine coefficients over the ray block)
+    oi = (iv[0] * o[0] + iv[1] * o[1] + iv[2] * o[2] + iv[3],
+          iv[4] * o[0] + iv[5] * o[1] + iv[6] * o[2] + iv[7],
+          iv[8] * o[0] + iv[9] * o[1] + iv[10] * o[2] + iv[11])
+    di = _vnorm((iv[0] * d[0] + iv[1] * d[1] + iv[2] * d[2],
+                 iv[4] * d[0] + iv[5] * d[1] + iv[6] * d[2],
+                 iv[8] * d[0] + iv[9] * d[1] + iv[10] * d[2]),
+                eps=1e-30)
+    a, valid, dircode = SOA_FNS[code](oi[0], oi[1], oi[2],
+                                      di[0], di[1], di[2])
+    plv = (oi[0] + a * di[0], oi[1] + a * di[1], oi[2] + a * di[2])
+    pg = (tf[0] * plv[0] + tf[1] * plv[1] + tf[2] * plv[2] + tf[3],
+          tf[4] * plv[0] + tf[5] * plv[1] + tf[6] * plv[2] + tf[7],
+          tf[8] * plv[0] + tf[9] * plv[1] + tf[10] * plv[2] + tf[11])
+    ex, ey, ez = o[0] - pg[0], o[1] - pg[1], o[2] - pg[2]
+    dist = jnp.where(valid, jnp.sqrt(ex * ex + ey * ey + ez * ez), FLT_MAX)
+
+    # shading normal (intersection_info, raytracer_func.frag:783-897);
+    # dircode >= 0 wherever it is read, so // 2 and % 2 are bit ops
+    odd = (dircode & 1) != 0
+    if code == CODE_SPHERE:
+        point = (2.0 * plv[0], 2.0 * plv[1], 2.0 * plv[2])
+    elif code == CODE_CUBE:
+        ax = dircode >> 1
+        sg = jnp.where(odd, 1.0, -1.0)
+        point = (plv[0] + jnp.where(ax == 0, sg, 0.0),
+                 plv[1] + jnp.where(ax == 1, sg, 0.0),
+                 plv[2] + jnp.where(ax == 2, sg, 0.0))
+    elif code == CODE_CYLINDER:
+        cap = dircode < 2
+        zsg = jnp.where(odd, 1.0, -1.0)
+        point = (plv[0] + jnp.where(cap, 0.0, plv[0]),
+                 plv[1] + jnp.where(cap, 0.0, plv[1]),
+                 plv[2] + jnp.where(cap, zsg, 0.0))
+    elif code == CODE_CONE:
+        rxy = jnp.sqrt(plv[0] * plv[0] + plv[1] * plv[1])
+        bot = dircode == 0
+        point = (plv[0] + jnp.where(bot, 0.0, plv[0]),
+                 plv[1] + jnp.where(bot, 0.0, plv[1]),
+                 plv[2] + jnp.where(bot, -1.0, rxy / 2.0))
+    else:  # oriented quad
+        point = (plv[0], plv[1], plv[2] + 1.0)
+    tp = (tf[0] * point[0] + tf[1] * point[1] + tf[2] * point[2]
+          + tf[3] - pg[0],
+          tf[4] * point[0] + tf[5] * point[1] + tf[6] * point[2]
+          + tf[7] - pg[1],
+          tf[8] * point[0] + tf[9] * point[1] + tf[10] * point[2]
+          + tf[11] - pg[2])
+    nv = _vnorm(tp, eps=1e-30)
+    if code == CODE_CONE:
+        # cone top-"cap" quirk: N = 0 (raytracer_func.frag:850-853)
+        z = jnp.zeros_like(nv[0])
+        nv = _vwhere(dircode == 1, (z, z, z), nv)
+    return dist, nv, pg
+
+
+def _trace_fold(groups, tab, sbb, order, o, d, n_prev, p_prev, cull):
     """Fold every analytic prim into per-ray winner ATTRIBUTES.
 
-    groups: static ((shape_code, start, count), ...); tab: SMEM [38, P]
-    (rows 0-11 inv affine, 12-23 trf affine, 24 shin, 25 rough, 26 emis,
-    27-30 rgba, 31 ok flag — 0 marks group-padding columns, which must
-    never hit — 32-37 world AABB min/max). Same winners as
-    ops.trace._small_group_soa (strictly-closer) up to exact distance
-    ties, where the nearest-first super order below may pick a
-    different—equally closest—winner. Returns (is_hit, N, P, shin,
-    rough, emis, col3, alpha); on miss N, P keep (n_prev, p_prev) — the
-    GLSL stale-output semantics that the refraction inner re-trace
-    relies on (tp/montecarlo.frag:150-152).
+    groups: static ((shape_code, start, count, super_start), ...);
+    tab(r, c): the [38, P] prim table (rows 0-11 inv affine, 12-23 trf
+    affine, 24 shin, 25 rough, 26 emis, 27-30 rgba, 31 ok flag — 0 marks
+    group-padding columns, which must never hit — 32-37 world AABB
+    min/max). Same winners as ops.trace._small_group_soa (strictly
+    closer) up to exact distance ties, where the nearest-first super
+    order may pick a different, equally close, winner. Returns (is_hit,
+    N, P, shin, rough, emis, col3, alpha); on miss N, P keep (n_prev,
+    p_prev) — the GLSL stale-output semantics that the refraction inner
+    re-trace relies on (tp/montecarlo.frag:150-152).
 
-    scr: 14 VMEM scratch refs holding the running winner (shared by the
-    outer and inner folds of a bounce; reset here). cull (static): skip a
-    prim entirely when no ray in the block can beat its current best
-    inside the prim's world AABB (tab rows 32-37) — the per-prim
-    frontier cull, the megakernel's answer to the reference's BVH walk
-    (intersect_bv, raytracer_func.frag:314-352). Conservative: identical
-    winners, directions must be unit (slab t == world distance).
-
-    ordr: SMEM (1, n_supers) per-TILE super visit order (group-relative
-    indices within each group's slice) — supers sorted nearest-first by
-    the tile's primary-ray bundle entry distance (host side,
-    _mega_super_order). Visiting near supers first makes the running
-    best tighten immediately, so the `tmin <= best` prune rejects the
+    cull (static): skip a prim when no ray of the block can beat its
+    current best inside the prim's world AABB — conservative, so winners
+    are identical; directions must be unit (slab t == world distance).
+    sbb(r, s) holds MEGA_SUPER-prim super boxes and order(k) this block's
+    nearest-first visit order of them (_mega_super_order). Visiting near
+    supers first tightens the running best early, so the prune rejects
     occluded far supers — the front-to-back effect of the reference's
-    BVH walk without per-ray divergence. The order is a pure heuristic
-    (stale for later bounces, where origins have moved): every super is
-    still slab-tested per bounce, so winners don't depend on it.
+    BVH walk. The order is a heuristic only: every super is still slab
+    tested, so winners do not depend on it.
     """
-    (bd_s, nx_s, ny_s, nz_s, px_s, py_s, pz_s,
-     sh_s, ro_s, em_s, cr_s, cg_s, cb_s, ca_s) = scr
     z = jnp.zeros_like(o[0])
-    bd_s[...] = z + FLT_MAX
-    nx_s[...] = n_prev[0]
-    ny_s[...] = n_prev[1]
-    nz_s[...] = n_prev[2]
-    px_s[...] = p_prev[0]
-    py_s[...] = p_prev[1]
-    pz_s[...] = p_prev[2]
-    sh_s[...] = z
-    ro_s[...] = z
-    em_s[...] = z
-    cr_s[...] = z
-    cg_s[...] = z
-    cb_s[...] = z
-    ca_s[...] = z + 1.0
+    # winner: best dist, N (3), P (3), shin, rough, emis, rgba (4)
+    win = (z + FLT_MAX, *n_prev, *p_prev, z, z, z, z, z, z, z + 1.0)
     if cull:
-        rdx, rdy, rdz = _safe_rcp(d[0]), _safe_rcp(d[1]), _safe_rcp(d[2])
+        rd = tuple(_safe_rcp(c) for c in d)
 
-    def make_body(code, start, fn):
-        is_sphere = code == CODE_SPHERE
-        is_cube = code == CODE_CUBE
-        is_cyl = code == CODE_CYLINDER
-        is_cone = code == CODE_CONE
+    def make_body(code, start):
+        def prim_work(c, w):
+            dist, nv, pg = _prim_candidate(code, tab, c, o, d)
+            # the ok flag also guards the update, so a pad column never
+            # wins even if a skip branch misbehaves
+            take = (tab(31, c) > 0.0) & (dist < w[0])
+            cand = (dist, *nv, *pg, *(tab(r, c) for r in range(24, 31)))
+            return tuple(jnp.where(take, x, y) for x, y in zip(cand, w))
 
-        def prim_work(c):
-            bd = bd_s[...]
-            nx, ny, nz = nx_s[...], ny_s[...], nz_s[...]
-            px, py, pz = px_s[...], py_s[...], pz_s[...]
-            shin, rough, emis = sh_s[...], ro_s[...], em_s[...]
-            cr, cg, cb, ca = cr_s[...], cg_s[...], cb_s[...], ca_s[...]
-            iv = [tab[r, c] for r in range(12)]
-            tf = [tab[r + 12, c] for r in range(12)]
-            # local-frame ray (scalar affine coefficients, full-lane blocks)
-            oi = (iv[0] * o[0] + iv[1] * o[1] + iv[2] * o[2] + iv[3],
-                  iv[4] * o[0] + iv[5] * o[1] + iv[6] * o[2] + iv[7],
-                  iv[8] * o[0] + iv[9] * o[1] + iv[10] * o[2] + iv[11])
-            di = _vnorm((iv[0] * d[0] + iv[1] * d[1] + iv[2] * d[2],
-                         iv[4] * d[0] + iv[5] * d[1] + iv[6] * d[2],
-                         iv[8] * d[0] + iv[9] * d[1] + iv[10] * d[2]),
-                        eps=1e-30)
-            a, valid, dircode = fn(oi[0], oi[1], oi[2], di[0], di[1], di[2])
-            plv = (oi[0] + a * di[0], oi[1] + a * di[1], oi[2] + a * di[2])
-            pg = (tf[0] * plv[0] + tf[1] * plv[1] + tf[2] * plv[2] + tf[3],
-                  tf[4] * plv[0] + tf[5] * plv[1] + tf[6] * plv[2] + tf[7],
-                  tf[8] * plv[0] + tf[9] * plv[1] + tf[10] * plv[2] + tf[11])
-            ex, ey, ez = o[0] - pg[0], o[1] - pg[1], o[2] - pg[2]
-            dist = jnp.where(valid,
-                             jnp.sqrt(ex * ex + ey * ey + ez * ez), FLT_MAX)
-
-            # shading normal (intersection_info, raytracer_func.frag:783-897)
-            if is_sphere:
-                point = (2.0 * plv[0], 2.0 * plv[1], 2.0 * plv[2])
-            elif is_cube:
-                ax = dircode // 2
-                sg = jnp.where(dircode % 2 != 0, 1.0, -1.0)
-                point = (plv[0] + jnp.where(ax == 0, sg, 0.0),
-                         plv[1] + jnp.where(ax == 1, sg, 0.0),
-                         plv[2] + jnp.where(ax == 2, sg, 0.0))
-            elif is_cyl:
-                cap = dircode < 2
-                zsg = jnp.where(dircode % 2 != 0, 1.0, -1.0)
-                point = (plv[0] + jnp.where(cap, 0.0, plv[0]),
-                         plv[1] + jnp.where(cap, 0.0, plv[1]),
-                         plv[2] + jnp.where(cap, zsg, 0.0))
-            elif is_cone:
-                rxy = jnp.sqrt(plv[0] * plv[0] + plv[1] * plv[1])
-                bot = dircode == 0
-                point = (plv[0] + jnp.where(bot, 0.0, plv[0]),
-                         plv[1] + jnp.where(bot, 0.0, plv[1]),
-                         plv[2] + jnp.where(bot, -1.0, rxy / 2.0))
-            else:  # oriented quad
-                point = (plv[0], plv[1], plv[2] + 1.0)
-            tp = (tf[0] * point[0] + tf[1] * point[1] + tf[2] * point[2]
-                  + tf[3] - pg[0],
-                  tf[4] * point[0] + tf[5] * point[1] + tf[6] * point[2]
-                  + tf[7] - pg[1],
-                  tf[8] * point[0] + tf[9] * point[1] + tf[10] * point[2]
-                  + tf[11] - pg[2])
-            nv = _vnorm(tp, eps=1e-30)
-            if is_cone:
-                # cone top-"cap" quirk: N = 0 (raytracer_func.frag:850-853)
-                topc = dircode == 1
-                nv = _vwhere(topc, (jnp.zeros_like(nv[0]),) * 3, nv)
-
-            # pad-column flag folded into the winner update as
-            # defense-in-depth: the @pl.when predicate also carries it,
-            # but Mosaic has executed mispredicated pl.when bodies
-            # before (round-2 lesson) — a pad column must never win
-            # even then (mirrors the mesh kernel, where pads are
-            # harmless degenerate triangles)
-            take = (tab[31, c] > 0.0) & (dist < bd)
-            bd_s[...] = jnp.where(take, dist, bd)
-            nx_s[...] = jnp.where(take, nv[0], nx)
-            ny_s[...] = jnp.where(take, nv[1], ny)
-            nz_s[...] = jnp.where(take, nv[2], nz)
-            px_s[...] = jnp.where(take, pg[0], px)
-            py_s[...] = jnp.where(take, pg[1], py)
-            pz_s[...] = jnp.where(take, pg[2], pz)
-            sh_s[...] = jnp.where(take, tab[24, c], shin)
-            ro_s[...] = jnp.where(take, tab[25, c], rough)
-            em_s[...] = jnp.where(take, tab[26, c], emis)
-            cr_s[...] = jnp.where(take, tab[27, c], cr)
-            cg_s[...] = jnp.where(take, tab[28, c], cg)
-            cb_s[...] = jnp.where(take, tab[29, c], cb)
-            ca_s[...] = jnp.where(take, tab[30, c], ca)
-
-        def body(p, _):
+        def body(p, w):
             # p may be a clamped re-test of the group's last real prim
             # (super-loop edge); equal candidates never replace the
             # strictly-closer winner, so that is harmless by design
             c = start + p
-            ok = tab[31, c] > 0.0          # group-padding columns never hit
+            pred = tab(31, c) > 0.0        # group-padding columns never hit
             if cull:
-                t0x = (tab[32, c] - o[0]) * rdx
-                t1x = (tab[35, c] - o[0]) * rdx
-                t0y = (tab[33, c] - o[1]) * rdy
-                t1y = (tab[36, c] - o[1]) * rdy
-                t0z = (tab[34, c] - o[2]) * rdz
-                t1z = (tab[37, c] - o[2]) * rdz
-                tmin = jnp.maximum(
-                    jnp.maximum(jnp.minimum(t0x, t1x),
-                                jnp.minimum(t0y, t1y)),
-                    jnp.maximum(jnp.minimum(t0z, t1z), 0.0))
-                tmax = jnp.minimum(
-                    jnp.minimum(jnp.maximum(t0x, t1x),
-                                jnp.maximum(t0y, t1y)),
-                    jnp.maximum(t0z, t1z))
-                boxhit = (tmax >= tmin) & (tmin <= bd_s[...])
-                pred = ok & jnp.any(boxhit)
-            else:
-                pred = ok
-
-            @pl.when(pred)
-            def _():
-                prim_work(c)
-
-            return 0
+                lo = tuple(tab(32 + k, c) for k in range(3))
+                hi = tuple(tab(35 + k, c) for k in range(3))
+                pred = pred & _block_any(_slab(lo, hi, o, rd, w[0]))
+            return jax.lax.cond(pred, functools.partial(prim_work, c),
+                                lambda w: w, w)
 
         return body
 
     for code, start, count, sstart in groups:
-        body = make_body(code, start, _SOA_FNS[code])
+        body = make_body(code, start)
         if not cull:
-            jax.lax.fori_loop(0, count, body, 0)
+            win = jax.lax.fori_loop(0, count, body, win)
             continue
 
-        # two-level frontier: a MEGA_SUPER-prim super-box (sbb SMEM,
-        # _mega_super_boxes) gates its prims' box tests and bodies —
-        # rays that miss a whole Morton region pay ONE slab test for 16
-        # prims (intersect_bvh's internal-node skip, the TPU way)
-        nsup = -(-count // MEGA_SUPER)
-
-        def super_body(spi, _, start=start, count=count, sstart=sstart,
-                      body=body):
-            # nearest-first visit order; ord_base offsets into a shared
-            # schedule row when the fold is embedded in the fused kernel
-            # (models/bounce_kernel.py), whose rows also carry mesh/ana
-            # segments before the SMEM-table segments
-            sp = ordr[0, 0, ord_base + sstart + spi]
+        def super_body(spi, w, sstart=sstart, count=count, body=body):
+            sp = order(sstart + spi)
             sc = sstart + sp
-            t0x = (sbb[0, sc] - o[0]) * rdx
-            t1x = (sbb[3, sc] - o[0]) * rdx
-            t0y = (sbb[1, sc] - o[1]) * rdy
-            t1y = (sbb[4, sc] - o[1]) * rdy
-            t0z = (sbb[2, sc] - o[2]) * rdz
-            t1z = (sbb[5, sc] - o[2]) * rdz
-            tmin = jnp.maximum(
-                jnp.maximum(jnp.minimum(t0x, t1x),
-                            jnp.minimum(t0y, t1y)),
-                jnp.maximum(jnp.minimum(t0z, t1z), 0.0))
-            tmax = jnp.minimum(
-                jnp.minimum(jnp.maximum(t0x, t1x),
-                            jnp.maximum(t0y, t1y)),
-                jnp.maximum(t0z, t1z))
-            shit = (tmax >= tmin) & (tmin <= bd_s[...])
+            lo = tuple(sbb(k, sc) for k in range(3))
+            hi = tuple(sbb(3 + k, sc) for k in range(3))
 
-            @pl.when(jnp.any(shit))
-            def _():
-                jax.lax.fori_loop(
+            def visit(w):
+                return jax.lax.fori_loop(
                     0, MEGA_SUPER,
-                    lambda j, __: body(
-                        jnp.minimum(sp * MEGA_SUPER + j, count - 1), __),
-                    0)
+                    lambda j, w: body(
+                        jnp.minimum(sp * MEGA_SUPER + j, count - 1), w),
+                    w)
 
-            return 0
+            return jax.lax.cond(_block_any(_slab(lo, hi, o, rd, w[0])),
+                                visit, lambda w: w, w)
 
-        jax.lax.fori_loop(0, nsup, super_body, 0)
-    bd = bd_s[...]
-    is_hit = bd < FLT_MAX
-    return (is_hit, (nx_s[...], ny_s[...], nz_s[...]),
-            (px_s[...], py_s[...], pz_s[...]),
-            sh_s[...], ro_s[...], em_s[...],
-            (cr_s[...], cg_s[...], cb_s[...]), ca_s[...])
+        win = jax.lax.fori_loop(0, -(-count // MEGA_SUPER), super_body, win)
+    is_hit = win[0] < FLT_MAX
+    return (is_hit, win[1:4], win[4:7], win[7], win[8], win[9],
+            win[10:13], win[13])
 
 
 # --------------------------------------------------------------------------
-# the shared per-bounce shading/material/RNG step
+# the per-bounce shading/material/RNG step
 # --------------------------------------------------------------------------
 
 def _bounce_step(trace_fn, has_transparent, ior,
                  o, d, attenu, total, result, done_i, state):
-    """One bounce of tp/montecarlo.frag:109-176 on block-SoA state,
-    shared by the whole-path megakernel and the fused per-bounce kernel
-    (models/bounce_kernel.py). trace_fn(o, d, n_prev, p_prev) returns
-    (is_hit, N, P, shin, rough, emis, col3, alpha) with GLSL
-    stale-(N, P)-on-miss semantics; it is called a second time for the
-    refraction march-through on transparent scenes. RNG draw schedule
-    (2 + 1 + 2 masked draws) is bit-identical to models/montecarlo.py."""
+    """One bounce of tp/montecarlo.frag:109-176 on per-ray state.
+    trace_fn(o, d, n_prev, p_prev) returns (is_hit, N, P, shin, rough,
+    emis, col3, alpha) with GLSL stale-(N, P)-on-miss semantics; it is
+    called a second time for the refraction march-through on transparent
+    scenes. RNG draw schedule (2 + 1 + 2 masked draws) is bit-identical
+    to models/montecarlo.py."""
     z = jnp.zeros_like(d[0])
     one = jnp.ones_like(d[0])
     unit_z = (z, z, one)
@@ -491,10 +428,9 @@ def _bounce_step(trace_fn, has_transparent, ior,
         d_in = _vwhere(cont & refr_case, _refract_glsl(d, N, ior), d)
         d_in = _vwhere(refr_lane, d_in, unit_z)
         # park non-refracting lanes far above every prim AABB: their
-        # inner-fold results are discarded below, and with culling on
-        # a tile whose lanes all parked fails every super/prim box
-        # test — the second fold costs ~nothing unless rays actually
-        # refract (mirrors ops/sort_rays.PARK_Z in the wavefront)
+        # inner-fold results are discarded below, and with culling on a
+        # block whose lanes all parked fails every super/prim box test —
+        # the second fold costs ~nothing unless rays actually refract
         o_in = _vwhere(refr_lane,
                        (P[0] - BIAS * N[0], P[1] - BIAS * N[1],
                         P[2] - BIAS * N[2]),
@@ -535,45 +471,51 @@ def _bounce_step(trace_fn, has_transparent, ior,
 
 
 # --------------------------------------------------------------------------
-# the megakernel
+# the kernel
 # --------------------------------------------------------------------------
 
-def _mega_kernel(groups, nb_bounces, has_transparent, cull,
+def _mega_kernel(groups, nb_bounces, has_transparent, cull, n_cols, n_sup,
                  dx_ref, dy_ref, dz_ref, u_ref, v_ref,
-                 fpar_ref, upar_ref, tab_ref, sbb_ref, ord_ref,
-                 r_ref, g_ref, b_ref, *scr):
-    d = (dx_ref[...], dy_ref[...], dz_ref[...])
+                 fpar_ref, seed_ref, tab_ref, sbb_ref, ord_ref,
+                 r_ref, g_ref, b_ref):
+    # normalized here, not in XLA around the call, so the result does not
+    # depend on how the surrounding program is fused (bit-stable under
+    # shard_map and jit nesting)
+    d = _vnorm((dx_ref[...], dy_ref[...], dz_ref[...]))
     z = jnp.zeros_like(d[0])
-    o = (z + fpar_ref[0, 0], z + fpar_ref[0, 1], z + fpar_ref[0, 2])
-    ior = fpar_ref[0, 3]
+    o = (z + fpar_ref[0], z + fpar_ref[1], z + fpar_ref[2])
+    ior = fpar_ref[3]
+    row0 = pl.program_id(0) * n_sup
+
+    def tab(r, c):
+        return tab_ref[r * n_cols + c]
+
+    def sbb(r, s):
+        return sbb_ref[r * n_sup + s]
+
+    def order(k):
+        return ord_ref[row0 + k]
 
     # srand (integer-exact seed; ops/rng.srand_soa)
-    state = (pltpu.bitcast(u_ref[...], U32),
-             jnp.zeros_like(d[0], U32) + upar_ref[0, 0],
-             pltpu.bitcast(v_ref[...], U32))
+    state = (jax.lax.bitcast_convert_type(u_ref[...], U32),
+             jnp.zeros_like(d[0], U32) + seed_ref[0],
+             jax.lax.bitcast_convert_type(v_ref[...], U32))
 
     attenu = (z + 0.8, z + 0.8, z + 0.8)   # vec3(0.8) (:106-107)
     total = (z, z, z)
     result = (z, z, z)
-    # Mosaic cannot legalize i1 vector loop carries through scf.for
-    # (round-1 bench failure: "failed to legalize operation 'scf.for'"),
-    # so `done` rides the carry as int32 and is compared at use sites.
     done_i = jnp.zeros_like(d[0], jnp.int32)
 
     def trace_fn(o, d, n_prev, p_prev):
-        return _trace_fold(groups, tab_ref, sbb_ref, ord_ref, o, d,
-                           n_prev, p_prev, scr, cull)
+        return _trace_fold(groups, tab, sbb, order, o, d, n_prev, p_prev,
+                           cull)
 
-    def bounce(o, d, attenu, total, result, done_i, state):
-        return _bounce_step(trace_fn, has_transparent, ior,
-                            o, d, attenu, total, result, done_i, state)
+    def bounce(_, c):
+        return _bounce_step(trace_fn, has_transparent, ior, *c)
 
-    # lax.fori_loop (not a static unroll): the body is bounce-invariant,
-    # and program size drives the Mosaic compile time of this kernel
     carry = (o, d, attenu, total, result, done_i, state)
-    carry = jax.lax.fori_loop(0, nb_bounces,
-                              lambda _, c: bounce(*c), carry)
-    o, d, attenu, total, result, done_i, state = carry
+    carry = jax.lax.fori_loop(0, nb_bounces, bounce, carry)
+    result, done_i = carry[4], carry[5]
 
     # bounce-cap exhaustion returns black (:178)
     done = done_i != 0
@@ -587,19 +529,15 @@ def _mega_kernel(groups, nb_bounces, has_transparent, cull,
 # --------------------------------------------------------------------------
 
 def mega_eligible(scene) -> bool:
-    """Static routing predicate: analytic-only scenes small enough for the
-    SMEM prim table. Mesh scenes and very large scenes use the chunked
-    kernels (ops/pallas_trace.py) via the SoA integrator instead."""
-    if scene.mesh_prim_index:
-        return False
-    total = sum(int(g.shape[0]) for g in scene.group_prim)
-    return 0 < total <= MEGA_MAX_PRIMS
+    """Scenes the kernel can render: analytic prims only."""
+    return not scene.mesh_prim_index
 
 
 def _mega_meta(scene):
     """Static ((code, start, count, super_start), ...) over the scene's
-    typed groups; super_start indexes the per-group 16-prim super-box
-    table (built by _mega_super_boxes, aligned with this layout)."""
+    typed groups; super_start indexes the per-group MEGA_SUPER-prim
+    super-box table (built by _mega_super_boxes, aligned with this
+    layout). Returns (groups, total columns)."""
     groups = []
     start = 0
     sstart = 0
@@ -613,50 +551,82 @@ def _mega_meta(scene):
 
 def _mega_super_boxes(scene):
     """[6, n_supers] world AABBs over MEGA_SUPER-prim windows of each
-    (Morton-ordered) group — the outer level of the megakernel's
-    frontier culling. Padding prims contribute empty boxes."""
+    (Morton-ordered) group — the outer level of the kernel's frontier
+    culling. Padding prims contribute empty boxes."""
     cols = []
     for gi in range(len(scene.group_codes)):
         pid = scene.group_prim[gi]
         ok = (pid >= 0)[:, None]
-        bmn = jnp.where(ok, jnp.take(scene.prim_bb_min, pid, axis=0),
-                        np.float32(3e38))
-        bmx = jnp.where(ok, jnp.take(scene.prim_bb_max, pid, axis=0),
-                        np.float32(-3e38))
+        bmn = jnp.where(ok, jnp.take(scene.prim_bb_min, pid, axis=0), INF)
+        bmx = jnp.where(ok, jnp.take(scene.prim_bb_max, pid, axis=0), -INF)
         n = bmn.shape[0]
         pad = -(-n // MEGA_SUPER) * MEGA_SUPER
-        bmn = jnp.concatenate(
-            [bmn, jnp.full((pad - n, 3), 3e38, jnp.float32)])
-        bmx = jnp.concatenate(
-            [bmx, jnp.full((pad - n, 3), -3e38, jnp.float32)])
+        bmn = jnp.concatenate([bmn, jnp.full((pad - n, 3), INF)])
+        bmx = jnp.concatenate([bmx, jnp.full((pad - n, 3), -INF)])
         smn = bmn.reshape(-1, MEGA_SUPER, 3).min(axis=1)   # [S,3]
         smx = bmx.reshape(-1, MEGA_SUPER, 3).max(axis=1)
         cols.append(jnp.concatenate([smn, smx], axis=1))   # [S,6]
     return jnp.concatenate(cols, axis=0).T                 # [6, S_total]
 
 
-def _mega_super_order(d_rows, o3, sbb, groups):
-    """[ntiles, n_supers] i32: per ray-tile visit order of each group's
-    supers, nearest-first by the tile's conservative bundle entry
-    distance into the super box (ops/worklist.bundle_box_entry with a
-    degenerate origin interval — primary rays share the pinhole origin).
-    Order is group-relative within each group's slice of the table so
-    the kernel's per-group fori_loop stays statically bound to its
-    shape code. Unreachable supers sort last (their in-kernel slab
-    tests fail anyway). Heuristic only — see _trace_fold."""
-    from ..ops.worklist import bundle_box_entry
+def _cond_interval(a, b):
+    """Feasible t >= 0 interval of a*t <= b (broadcastable arrays):
+    returns (lo, hi); empty encoded as lo > hi."""
+    pos = a > 0
+    neg = a < 0
+    zer = ~(pos | neg)
+    ratio = b / jnp.where(zer, np.float32(1.0), a)
+    lo = jnp.where(neg, jnp.maximum(ratio, 0.0), np.float32(0.0))
+    hi = jnp.where(pos, ratio, INF)
+    # a == 0: all t if b >= 0 else empty
+    hi = jnp.where(zer & (b < 0), np.float32(-1.0), hi)
+    return lo, hi
 
-    m = d_rows.shape[1] * d_rows.shape[2]
-    nt = m // (TILE_ROWS * LANES)
-    dt = d_rows.reshape(3, nt, TILE_ROWS * LANES)
+
+def _bundle_box_entry(bundles, boxes):
+    """Conservative entry distance t_lo [ntiles, S] of each ray bundle
+    into each box, INF where the bundle cannot reach the box.
+
+    bundles: (olo, ohi, dlo, dhi), componentwise origin and direction
+    intervals, each [3, ntiles]; boxes: [6, S] (rows 0-2 min, 3-5 max).
+    Per axis c a contained ray's position interval at t >= 0 is
+    [olo_c + t*dlo_c, ohi_c + t*dhi_c]; it can overlap [blo_c, bhi_c] iff
+    dlo_c * t <= bhi_c - olo_c and -dhi_c * t <= ohi_c - blo_c. t_lo
+    lower-bounds every contained ray's slab entry. Degenerate (padding)
+    boxes with min > max are forced to INF."""
+    olo, ohi, dlo, dhi = bundles
+    t_lo = jnp.zeros((olo.shape[1], boxes.shape[1]), jnp.float32)
+    t_hi = jnp.full_like(t_lo, INF)
+    for c in range(3):
+        blo = boxes[c][None, :]
+        bhi = boxes[3 + c][None, :]
+        lo1, hi1 = _cond_interval(dlo[c][:, None], bhi - olo[c][:, None])
+        lo2, hi2 = _cond_interval(-dhi[c][:, None], ohi[c][:, None] - blo)
+        t_lo = jnp.maximum(t_lo, jnp.maximum(lo1, lo2))
+        t_hi = jnp.minimum(t_hi, jnp.minimum(hi1, hi2))
+    real = jnp.all(boxes[0:3] <= boxes[3:6], axis=0)[None, :]
+    return jnp.where((t_hi >= t_lo) & real, t_lo, INF)
+
+
+def _mega_super_order(d_rows, o3, sbb, groups):
+    """[ntiles, n_supers] i32: per ray-block visit order of each group's
+    supers, nearest-first by the block's conservative bundle entry
+    distance into the super box (primary rays share the pinhole origin,
+    so the origin interval is degenerate). Order is group-relative within
+    each group's slice of the table so the kernel's per-group fori_loop
+    stays statically bound to its shape code. Unreachable supers sort
+    last (their in-kernel slab tests fail anyway). Heuristic only — see
+    _trace_fold."""
+    nt = d_rows.shape[1] // BLOCK
+    dt = d_rows.reshape(3, nt, BLOCK)
     olo = jnp.broadcast_to(o3[:, None], (3, nt))
-    bundles = (olo, olo, dt.min(axis=2), dt.max(axis=2))
-    entry = bundle_box_entry(bundles, sbb)          # [nt, n_supers]
+    entry = _bundle_box_entry((olo, olo, dt.min(axis=2), dt.max(axis=2)),
+                              sbb)                      # [nt, n_supers]
     cols = []
     for _, _, count, sstart in groups:
         nsup = -(-count // MEGA_SUPER)
         cols.append(jnp.argsort(entry[:, sstart:sstart + nsup], axis=1))
-    return jnp.concatenate(cols, axis=1).astype(jnp.int32)[:, None, :]
+    return jnp.concatenate(cols, axis=1).astype(jnp.int32)
 
 
 def _mega_table(scene):
@@ -683,80 +653,88 @@ def _mega_table(scene):
     return jnp.concatenate(cols, axis=0).T         # [38, P]
 
 
+def _pad_rays(D, screen_tc, npad):
+    """Direction rows [3, npad] (normalized inside the kernel) and u, v
+    [npad]; padding rays point along +z with a zero seed (their results
+    are dropped)."""
+    n = D.shape[0]
+    unit_z = jnp.broadcast_to(jnp.array([0.0, 0.0, 1.0], jnp.float32),
+                              (npad - n, 3))
+    d_rows = jnp.concatenate([jnp.asarray(D, jnp.float32), unit_z]).T
+    tc = jnp.concatenate([screen_tc, jnp.zeros((npad - n, 2), jnp.float32)])
+    return d_rows, tc[:, 0], tc[:, 1]
+
+
 @functools.partial(
     jax.jit, static_argnames=("groups", "nb_bounces", "has_transparent",
                               "cull", "interpret"))
-def _mega_call(d_rows, u, v, fpar, upar, tab, sbb, ordr, groups,
+def _mega_call(d_rows, u, v, fpar, seed, tab, sbb, ordr, groups,
                nb_bounces, has_transparent, cull=False, interpret=False):
-    m = d_rows.shape[1]
-    grid = (m // TILE_ROWS,)
-    blk = pl.BlockSpec((TILE_ROWS, LANES), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-    smem = lambda shape: pl.BlockSpec(shape, lambda i: (0, 0),
-                                      memory_space=pltpu.SMEM)
-    # per-TILE super visit order: one (1, 1, n_supers) SMEM row per grid
-    # step (the leading tile axis is the blocked one; the trailing two
-    # match the array dims, which the Mosaic block-shape rule requires)
-    ord_spec = pl.BlockSpec((1, 1, ordr.shape[2]), lambda i: (i, 0, 0),
-                            memory_space=pltpu.SMEM)
+    npad = d_rows.shape[1]
+    ray = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    whole = pl.no_block_spec
     kernel = functools.partial(_mega_kernel, groups, nb_bounces,
-                               has_transparent, cull)
+                               has_transparent, cull, tab.shape[1],
+                               sbb.shape[1])
     r, g, b = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[blk, blk, blk, blk, blk,
-                  smem((1, 4)), smem((1, 1)), smem(tab.shape),
-                  smem(sbb.shape), ord_spec],
-        out_specs=[blk, blk, blk],
-        out_shape=[jax.ShapeDtypeStruct((m, LANES), jnp.float32)] * 3,
-        # 14 winner-attribute scratch buffers shared by the per-bounce
-        # closest-hit folds (bd, N, P, shin/rough/emis, rgba)
-        scratch_shapes=[pltpu.VMEM((TILE_ROWS, LANES), jnp.float32)] * 14,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
+        grid=(npad // BLOCK,),
+        in_specs=[ray, ray, ray, ray, ray, whole, whole, whole, whole,
+                  whole],
+        out_specs=[ray, ray, ray],
+        out_shape=[jax.ShapeDtypeStruct((npad,), jnp.float32)] * 3,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
         interpret=interpret,
-    )(d_rows[0], d_rows[1], d_rows[2], u, v, fpar, upar, tab, sbb, ordr)
+        name="megakernel",
+    )(d_rows[0], d_rows[1], d_rows[2], u, v, fpar, seed, tab.reshape(-1),
+      sbb.reshape(-1), ordr.reshape(-1))
     return r, g, b
 
 
 def raytrace_mega(scene, O, D, screen_tc, pass_index, *, nb_bounces: int,
                   refract_ind, date=0.0, interpret: bool = False):
-    """Whole-pass megakernel twin of models.montecarlo.raytrace.
+    """Whole-pass kernel twin of models.montecarlo.raytrace.
 
     O: [3] camera origin (the reference's pinhole model), D: [N,3] ray
-    dirs (normalized inside), screen_tc: [N,2]. Returns rgb [N,3].
-    Bit-identical RNG schedule to the SoA integrator; float results match
-    to a few ulp (Mosaic fuses multiply-adds differently from XLA).
-    """
-    n = D.shape[0]
-    tile = TILE_ROWS * LANES
-    rows = ((n + tile - 1) // tile) * tile // LANES
+    dirs (normalized inside the kernel), screen_tc: [N,2]. Returns rgb
+    [N,3]. The super-box visit order is computed from D as given (a
+    heuristic: camera rays are unit already).
+    Bit-identical RNG schedule to the dense route; float results match to
+    a few ulp (the kernel contracts multiply-adds differently from XLA).
 
-    d = D / jnp.linalg.norm(D, axis=-1, keepdims=True)
-    dx = jnp.zeros((rows * LANES,), jnp.float32).at[:n].set(d[:, 0])
-    dy = jnp.zeros((rows * LANES,), jnp.float32).at[:n].set(d[:, 1])
-    dz = jnp.ones((rows * LANES,), jnp.float32).at[:n].set(d[:, 2])
-    u = jnp.zeros((rows * LANES,), jnp.float32).at[:n].set(screen_tc[:, 0])
-    v = jnp.zeros((rows * LANES,), jnp.float32).at[:n].set(screen_tc[:, 1])
-    d_rows = jnp.stack([dx, dy, dz]).reshape(3, rows, LANES)
-    u = u.reshape(rows, LANES)
-    v = v.reshape(rows, LANES)
+    The kernel compiles only for a GPU. interpret=True runs it in the
+    Pallas interpreter instead (tests on the CPU); asking for the
+    compiled kernel on another backend raises.
+    """
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the megakernel compiles only for a GPU backend (found "
+            f"{jax.default_backend()!r}); pass interpret=True to run it "
+            "in the Pallas interpreter")
+    if not mega_eligible(scene):
+        raise ValueError("the megakernel renders analytic scenes only")
+    n = D.shape[0]
+    npad = -(-n // BLOCK) * BLOCK
+    d_rows, u, v = _pad_rays(D, screen_tc, npad)
 
     o3 = jnp.broadcast_to(jnp.asarray(O, jnp.float32), (3,))
-    fpar = jnp.concatenate(
-        [o3, jnp.asarray(refract_ind, jnp.float32)[None]]).reshape(1, 4)
+    fpar = jnp.concatenate([o3, jnp.asarray(refract_ind, jnp.float32)[None]])
     # seed y = pass * GOLDEN + bits(date)  (ops/rng.srand_soa)
-    y = (jnp.asarray(pass_index).astype(U32) * U32(_rng.GOLDEN)
-         + jax.lax.bitcast_convert_type(jnp.float32(date), U32))
-    upar = y.reshape(1, 1)
+    seed = (jnp.asarray(pass_index).astype(U32) * U32(_rng.GOLDEN)
+            + jax.lax.bitcast_convert_type(jnp.float32(date), U32))[None]
 
     groups, total = _mega_meta(scene)
+    cull = total >= MEGA_CULL_MIN_PRIMS
     tab = _mega_table(scene)
-    sbb = _mega_super_boxes(scene)
-    ordr = _mega_super_order(d_rows, o3, sbb, groups)
-    r, g, b = _mega_call(d_rows, u, v, fpar, upar, tab, sbb, ordr, groups,
-                         int(nb_bounces), scene.has_transparent,
-                         cull=total >= MEGA_CULL_MIN_PRIMS,
+    if cull:
+        sbb = _mega_super_boxes(scene)
+        ordr = _mega_super_order(d_rows, o3, sbb, groups)
+    else:   # unread placeholders
+        sbb = jnp.zeros((6, 1), jnp.float32)
+        ordr = jnp.zeros((npad // BLOCK, 1), jnp.int32)
+    r, g, b = _mega_call(d_rows, u, v, fpar, seed, tab, sbb, ordr, groups,
+                         int(nb_bounces), scene.has_transparent, cull=cull,
                          interpret=interpret)
-    rgb = jnp.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1)], axis=-1)
-    return rgb[:n]
+    return jnp.stack([r, g, b], axis=-1)[:n]

@@ -1,10 +1,11 @@
-"""The Monte Carlo path-tracing integrator — the flagship device megakernel.
+"""The Monte Carlo path-tracing integrator: the dense reference route.
 
-SoA production implementation: every per-ray vec3 lives as a tuple of [N]
-component arrays (ops/vec.py) so the whole bounce loop runs with full
-128-lane VPU utilization — an [N, 3] array on TPU pads its lane dimension
-to 128 (42x waste), which made the naive layout ~500x off the Pallas
-kernels' throughput. [N, 3] appears only at the raytrace() API boundary.
+SoA implementation: every per-ray vec3 lives as a tuple of [N] component
+arrays (ops/vec.py); [N, 3] appears only at the raytrace() API boundary.
+Each bounce traces through the dense XLA fold (ops/trace.py) and shades
+with XLA elementwise fusions. raytrace() also chooses the route: on a GPU
+an analytic scene renders through the whole-pass kernel
+(models/megakernel.py) instead, with the identical draw schedule.
 
 Semantics are the reference integrator verbatim (tp/montecarlo.frag:
 100-188) — see models/montecarlo_aos.py (the readable AoS twin, kept in
@@ -25,8 +26,7 @@ import jax.numpy as jnp
 
 from ..ops import rng, vec
 from ..ops.sampling import random_ray_soa, schlick_soa
-from ..ops.trace import trace, trace_soa, HitS
-from ..ops.intersect import FLT_MAX
+from ..ops.trace import trace, HitS
 from ..ops.shading import intersection_info_soa
 from ..utils.transforms import normalize
 
@@ -42,55 +42,41 @@ def sky_color_soa(d):
                  for lo, hi in zip(SKY_LOW, SKY_HIGH))
 
 
-def _trace_dispatch(scene, o, d, use_pallas, interpret, cull_chunks=None,
-                    nondiff=False):
-    """SoA closest hit: Pallas kernels on TPU, dense XLA fold otherwise.
+ROUTES = ("megakernel", "dense")
 
-    nondiff=True detaches the trace from the AD graph (stop_gradient on
-    the rays in and every Hit field out) so reverse-mode never needs a
-    VJP for the Pallas kernels. This is exact for the differentiable
-    leaves (color/mat/light: hit geometry does not depend on them) but
-    drops the GEOMETRIC IOR gradient (refraction directions feed the
-    next, detached trace). The retained Schlick/attenuation IOR term
-    still flows in principle — but the reference's rSchlick quirk
-    (x = 1 - dot(N, D) with D pointing INTO the surface, clamped to
-    [0,1]; tp/montecarlo.frag:91-98) saturates rs to exactly 1 for
-    front-facing hits, so its derivative is zero almost everywhere: in
-    practice the fast route has NO usable refract_ind gradient (guarded
-    by tests/test_grad.py::test_fast_path_ior_grad_documented_gap).
-    Anything needing dL/d(ior) must use the dense route, which keeps the
-    full geometric term (render/diff.inverse_render_fit auto-routes)."""
-    if nondiff:
-        o = tuple(jax.lax.stop_gradient(c) for c in o)
-        d = tuple(jax.lax.stop_gradient(c) for c in d)
-    if use_pallas:
-        hit = trace_soa(scene, o, d, interpret=interpret,
-                        cull_chunks=cull_chunks)
-    else:
-        h = trace(scene, vec.to_aos(o), vec.to_aos(d))
-        hit = HitS(h.dist, h.prim, h.shape, h.dircode, h.tri,
-                   vec.from_aos(h.pl), vec.from_aos(h.pg))
-    if nondiff:
-        hit = jax.tree_util.tree_map(jax.lax.stop_gradient, hit)
-    return hit
+
+def choose_route(scene, *, differentiable: bool = False) -> str:
+    """The one routing rule: the whole-pass kernel for an analytic scene
+    on a GPU backend, the dense XLA route for everything else — meshes,
+    gradients (the kernel has no VJP; the dense route keeps the full IOR
+    gradient, see render/diff.py) and every other backend."""
+    from .megakernel import mega_eligible
+    if (not differentiable and jax.default_backend() == "gpu"
+            and mega_eligible(scene)):
+        return "megakernel"
+    return "dense"
+
+
+def _trace_soa(scene, o, d):
+    """SoA closest hit through the dense XLA fold."""
+    h = trace(scene, vec.to_aos(o), vec.to_aos(d))
+    return HitS(h.dist, h.prim, h.shape, h.dircode, h.tri,
+                vec.from_aos(h.pl), vec.from_aos(h.pg))
 
 
 def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
-                    detach_sampling: bool = False, use_pallas: bool = False,
-                    pallas_interpret: bool = False,
-                    cull_chunks: bool | None = None,
-                    nondiff_trace: bool = False,
+                    detach_sampling: bool = False,
                     sort_rays: bool = False):
     """One path per lane, SoA. o, d: vec3 of [N] (d normalized), state:
     (s0, s1, s2) uint32 [N]. Returns (rgb vec3, state).
 
     sort_rays: re-sort the wavefront between bounces by (direction
-    octant, origin Morton) so secondary rays regain the tile coherence
-    the frontier culls need, and park terminated rays in tiles that cull
-    everything (ops/sort_rays.py). Per-lane math is permutation-
-    invariant, so results match the unsorted path exactly up to XLA
-    fusing fma differently between the two programs (measured <= 1 ulp;
-    the RNG streams and trace winners are identical)."""
+    octant, origin Morton) and park terminated rays at the tail
+    (ops/sort_rays.py), so neighbouring lanes carry coherent rays. Off by
+    default; kept for measuring wavefront compaction. Per-lane math is
+    permutation-invariant, so results match the unsorted path up to XLA
+    fusing fma differently between the two programs (the RNG streams and
+    trace winners are identical)."""
     n = d[0].shape[0]
     z = jnp.zeros((n,), jnp.float32)
     one = jnp.ones((n,), jnp.float32)
@@ -101,9 +87,8 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
         sort_lo = jnp.min(scene.prim_bb_min, axis=0)
         sort_hi = jnp.max(scene.prim_bb_max, axis=0)
 
-    # ONE transposed material+color table [8, Nprims]: each per-prim
-    # gather is a fixed ~0.25 ms custom-call at 131K rays, so merging
-    # the two tables halves the per-bounce gather count
+    # ONE transposed material+color table [8, Nprims]: one gather per
+    # bounce instead of two
     matcol_t = jnp.concatenate([scene.mat.T, scene.color.T], axis=0)
 
     def maybe_detach(v):
@@ -129,8 +114,7 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
             done = flat[15]
             state = tuple(flat[16:19])
             lane = flat[19]
-        hit = _trace_dispatch(scene, o, d, use_pallas, pallas_interpret,
-                              cull_chunks, nondiff_trace)
+        hit = _trace_soa(scene, o, d)
 
         active = ~done
         is_hit = hit.shape >= 0
@@ -203,7 +187,7 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
         # refraction inner re-trace (:146-153; mixed keeps un-refracted D).
         # When the scene has NO transparent material (every alpha == 1,
         # static at compile), refr_lane is identically false and the whole
-        # second trace is elided — ~2x per-pass speedup on opaque scenes.
+        # second trace is elided.
         if scene.has_transparent:
             d_inner = vec.where(cont & refr_case,
                                 vec.refract_glsl(d, N, refract_ind), d)
@@ -218,9 +202,7 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
                 park = o
             o_inner = vec.where(refr_lane,
                                 vec.sub(P, vec.scale(N, BIAS)), park)
-            hit2 = _trace_dispatch(scene, o_inner, d_inner, use_pallas,
-                                   pallas_interpret, cull_chunks,
-                                   nondiff_trace)
+            hit2 = _trace_soa(scene, o_inner, d_inner)
             n2_raw, p2_raw = intersection_info_soa(scene, hit2, prev=(N, P))
             N2 = vec.where(refr_lane, n2_raw, unit_z)
             P2 = vec.where(refr_lane, p2_raw, P)
@@ -265,9 +247,8 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
     # bounce-cap exhaustion returns black (:178)
     rgb = vec.where(done, result, (z, z, z))
     if sort_rays:
-        # undo the accumulated bounce permutations: ONE row-form scatter
-        # per dtype (separate 1-D scatters pay a random access per
-        # element on TPU, like the gathers — see ops/sort_rays.py)
+        # undo the accumulated bounce permutations: one row-form scatter
+        # per dtype
         rgb_s = jnp.zeros((3, n), jnp.float32).at[:, lane].set(
             jnp.stack(rgb))
         rgb = (rgb_s[0], rgb_s[1], rgb_s[2])
@@ -279,76 +260,39 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
 
 def raytrace(scene, O, D, screen_tc, pass_index, *, nb_bounces: int,
              refract_ind, date=0.0, detach_sampling: bool = False,
-             use_pallas: bool = False, pallas_interpret: bool = False,
-             use_megakernel: bool | None = None,
-             use_fused: bool | None = None,
-             cull_chunks: bool | None = None,
-             nondiff_trace: bool | None = None,
-             sort_rays: bool | None = None):
+             route: str | None = None, pallas_interpret: bool = False,
+             sort_rays: bool = False):
     """tp/montecarlo.frag:182-188: srand + one random path per lane.
 
-    AoS boundary: O [3], D [N,3], screen_tc [N,2] in; rgb [N,3] out. Rays
-    are padded to the Pallas RAY_TILE internally when use_pallas.
+    AoS boundary: O [3], D [N,3], screen_tc [N,2] in; rgb [N,3] out.
 
-    use_megakernel: None = auto — when the fast path is requested
-    (use_pallas), gradients are not (detach_sampling off), and the scene
-    is analytic + small enough for the SMEM prim table, the whole pass
-    runs as ONE fused Pallas kernel (models/megakernel.py) instead of the
-    trace-kernel + XLA-shading pipeline (~20x less HBM traffic per pass).
+    route: "megakernel" or "dense"; None = choose_route(scene). The
+    kernel compiles only for a GPU: pallas_interpret=True runs it in the
+    Pallas interpreter (tests on the CPU), and asking for it on another
+    backend without that raises.
     """
-    if nondiff_trace is None:
-        # the gradient path (detach_sampling) through the Pallas kernels
-        # needs the trace detached — no VJP exists for the kernels, and
-        # none is needed (see _trace_dispatch)
-        nondiff_trace = use_pallas and detach_sampling
-    if use_megakernel is None:
-        from .megakernel import mega_eligible
-        use_megakernel = (use_pallas and not detach_sampling
-                          and mega_eligible(scene))
-    if use_megakernel:
+    if route is None:
+        route = choose_route(scene, differentiable=detach_sampling)
+    if route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; have {ROUTES}")
+    if route == "megakernel":
+        if detach_sampling or sort_rays:
+            raise ValueError(
+                "the megakernel has no gradient rule and no wavefront "
+                "sort: detach_sampling and sort_rays need route='dense'")
         from .megakernel import raytrace_mega
         return raytrace_mega(
             scene, O, D, screen_tc, pass_index, nb_bounces=nb_bounces,
             refract_ind=refract_ind, date=date, interpret=pallas_interpret)
-    if use_fused is None:
-        from .bounce_kernel import fused_eligible
-        use_fused = (use_pallas and not detach_sampling
-                     and fused_eligible(scene))
-    if use_fused:
-        # mesh scenes: the fused per-bounce kernel (trace + shade +
-        # sample in one Pallas call per bounce, models/bounce_kernel.py)
-        from .bounce_kernel import raytrace_fused
-        return raytrace_fused(
-            scene, O, D, screen_tc, pass_index, nb_bounces=nb_bounces,
-            refract_ind=refract_ind, date=date, interpret=pallas_interpret)
-    if sort_rays is None:
-        # auto: the sorted wavefront pays off exactly where the tile
-        # frontier culls need coherence — the fast (Pallas) route on
-        # multi-bounce renders; the dense route and gradients keep the
-        # simple layout (and stay the bit-exact unsorted reference)
-        sort_rays = (bool(use_pallas) and not detach_sampling
-                     and nb_bounces > 1)
     n = D.shape[0]
-    pad = n
-    if use_pallas:
-        from ..ops.pallas_trace import RAY_TILE
-        pad = ((n + RAY_TILE - 1) // RAY_TILE) * RAY_TILE
-
     d = normalize(D)
-    dx = jnp.zeros((pad,), jnp.float32).at[:n].set(d[:, 0])
-    dy = jnp.zeros((pad,), jnp.float32).at[:n].set(d[:, 1])
-    dz = jnp.ones((pad,), jnp.float32).at[:n].set(d[:, 2])
-    u = jnp.zeros((pad,), jnp.float32).at[:n].set(screen_tc[:, 0])
-    v = jnp.zeros((pad,), jnp.float32).at[:n].set(screen_tc[:, 1])
     o3 = jnp.broadcast_to(jnp.asarray(O, jnp.float32), (3,))
-    o = (jnp.full((pad,), o3[0]), jnp.full((pad,), o3[1]),
-         jnp.full((pad,), o3[2]))
+    o = (jnp.full((n,), o3[0]), jnp.full((n,), o3[1]),
+         jnp.full((n,), o3[2]))
 
-    state = rng.srand_soa(u, v, pass_index, date)
+    state = rng.srand_soa(screen_tc[:, 0], screen_tc[:, 1], pass_index, date)
     rgb, _ = random_path_soa(
-        scene, o, (dx, dy, dz), state,
+        scene, o, (d[:, 0], d[:, 1], d[:, 2]), state,
         nb_bounces=nb_bounces, refract_ind=refract_ind,
-        detach_sampling=detach_sampling, use_pallas=use_pallas,
-        pallas_interpret=pallas_interpret, cull_chunks=cull_chunks,
-        nondiff_trace=nondiff_trace, sort_rays=sort_rays)
-    return vec.to_aos(rgb)[:n]
+        detach_sampling=detach_sampling, sort_rays=sort_rays)
+    return vec.to_aos(rgb)

@@ -1,7 +1,7 @@
 """AoS reference implementation of the Monte Carlo integrator.
 
 This is the readable [N, 3]-layout twin of models/montecarlo.py (the SoA
-production megakernel) — kept in the carousel as "montecarlo_aos" for
+dense route) — kept in the carousel as "montecarlo_aos" for
 cross-checking and CPU debugging; both must render identical images
 (tests/test_soa_integrator.py).
 
@@ -9,7 +9,7 @@ Reimplements the reference's real integrator (tp/montecarlo.frag:100-188) as
 one batched, jittable bounce loop over a ray SoA. Key structural insight:
 the GLSL path "stack" pops one entry and pushes at most one per iteration
 (tp/montecarlo.frag:109-177), so it degenerates to plain iterative path
-state — on TPU the whole integrator is a `lax.fori_loop` carrying
+state — here the whole integrator is a `lax.fori_loop` carrying
 (O, D, attenuation, total, result, done-mask, RNG counters) for every lane,
 with divergence mapped to masks instead of SIMT branches.
 
@@ -63,7 +63,7 @@ def sky_color(d):
 
 
 def random_path(scene, O, D, state, *, nb_bounces: int, refract_ind,
-                detach_sampling: bool = False, use_pallas: bool = False):
+                detach_sampling: bool = False):
     """One path per lane. O, D: [N,3] world rays (D normalized), state:
     uint32 [N,3] RNG counters. Returns (rgb [N,3], state)."""
     n = D.shape[0]
@@ -76,7 +76,7 @@ def random_path(scene, O, D, state, *, nb_bounces: int, refract_ind,
     def bounce(i, carry):
         O, D, attenu, total, result, done, state = carry
         del i
-        hit = trace(scene, O, D, use_pallas=use_pallas)
+        hit = trace(scene, O, D)
 
         active = ~done
         is_hit = hit.shape >= 0
@@ -145,7 +145,7 @@ def random_path(scene, O, D, state, *, nb_bounces: int, refract_ind,
                             refract_glsl(D, N, refract_ind), D)
         d_inner = jnp.where(refr_lane[..., None], d_inner, unit_z)
         o_inner = jnp.where(refr_lane[..., None], P - BIAS * N, O)
-        hit2 = trace(scene, o_inner, d_inner, use_pallas=use_pallas)
+        hit2 = trace(scene, o_inner, d_inner)
         n2_raw, p2_raw = intersection_info(scene, hit2, prev_n=N, prev_p=P)
         N2 = jnp.where(refr_lane[..., None], n2_raw, unit_z)
         P2 = jnp.where(refr_lane[..., None], p2_raw, P)
@@ -186,8 +186,7 @@ def random_path(scene, O, D, state, *, nb_bounces: int, refract_ind,
 
 
 def raytrace(scene, O, D, screen_tc, pass_index, *, nb_bounces: int,
-             refract_ind, date=0.0, detach_sampling: bool = False,
-             use_pallas: bool = False):
+             refract_ind, date=0.0, detach_sampling: bool = False):
     """tp/montecarlo.frag:182-188: srand + one random path per lane.
 
     O: [3] camera origin; D: [N,3] ray dirs; screen_tc: [N,2].
@@ -197,5 +196,5 @@ def raytrace(scene, O, D, screen_tc, pass_index, *, nb_bounces: int,
     rgb, _ = random_path(
         scene, O, normalize(D), state,
         nb_bounces=nb_bounces, refract_ind=refract_ind,
-        detach_sampling=detach_sampling, use_pallas=use_pallas)
+        detach_sampling=detach_sampling)
     return rgb

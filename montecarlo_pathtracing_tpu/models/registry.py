@@ -1,4 +1,4 @@
-"""Integrator registry — the SrcLoader carousel, TPU style.
+"""Integrator registry — the SrcLoader carousel as a name table.
 
 The reference cycles GLSL integrator sources with O/P keys and recompiles
 the 3-part shader (gl_viewer.h:148-220, montecarlo.cpp:292-304). Here the
@@ -27,3 +27,13 @@ def get_integrator(name: str):
         raise KeyError(
             f"unknown integrator {name!r}; have {sorted(INTEGRATORS)}")
     return INTEGRATORS[name]
+
+
+def route_kwargs(integrator, route=None, pallas_interpret=False) -> dict:
+    """The routing keywords `integrator` accepts (only the montecarlo
+    integrator has routes; the others ignore them)."""
+    import inspect
+
+    params = inspect.signature(integrator).parameters
+    kw = dict(route=route, pallas_interpret=pallas_interpret)
+    return {k: v for k, v in kw.items() if k in params}

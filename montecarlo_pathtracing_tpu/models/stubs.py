@@ -33,8 +33,7 @@ def _first_hit(scene, O, D):
 
 
 def raytrace_mat(scene, O, D, screen_tc, pass_index, *, nb_bounces=0,
-                 refract_ind=1.0, date=0.0, detach_sampling=False,
-                 use_pallas=False):
+                 refract_ind=1.0, date=0.0, detach_sampling=False):
     """tp/montecarlo_mat.frag: abs(N) * random_vec3()."""
     state = rng.srand(screen_tc, pass_index, date)
     hit, n, _col = _first_hit(scene, O, D)
@@ -44,8 +43,7 @@ def raytrace_mat(scene, O, D, screen_tc, pass_index, *, nb_bounces=0,
 
 
 def raytrace_mat_tr(scene, O, D, screen_tc, pass_index, *, nb_bounces=0,
-                    refract_ind=1.0, date=0.0, detach_sampling=False,
-                    use_pallas=False):
+                    refract_ind=1.0, date=0.0, detach_sampling=False):
     """tp/montecarlo_mat_tr.frag: col.rgb * random_float()."""
     state = rng.srand(screen_tc, pass_index, date)
     hit, _n, col = _first_hit(scene, O, D)

@@ -1,6 +1,6 @@
 // Native BVH builder: complete-binary-tree median split, cyclic axes.
 //
-// Host-side C++ component of the TPU framework (the analog of the
+// Host-side C++ component of the framework (the analog of the
 // reference's BVH_KDtree, bvh_gpu/bvh.cpp:34-93): produces the identical
 // output format — heap-ordered boxes [2^(d+1)-1] and leaf prim ids [2^d]
 // with -1 holes — and bit-identical arrays to the Python builder

@@ -1,9 +1,9 @@
 """ctypes loader for the native BVH builder (bvh_builder.cpp).
 
-Compiles the shared library on first use with g++ (no pybind11 in the
-image — plain C ABI + ctypes, per the framework's native-binding policy)
-and caches it next to the source. Falls back silently if no compiler is
-available; scene/bvh_builder.py then uses the numpy path.
+Compiles the shared library from bvh_builder.cpp on first use with g++
+(plain C ABI + ctypes) and caches it next to the source; the library is
+never committed (.gitignore lists it). Falls back silently if no compiler
+is available; scene/bvh_builder.py then uses the numpy path.
 """
 from __future__ import annotations
 
@@ -21,6 +21,13 @@ _lock = threading.Lock()
 _lib = None
 
 
+def build_library(path: str = _LIB) -> str:
+    """Compile bvh_builder.cpp into the shared library at `path`."""
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", path, _SRC],
+                   check=True, capture_output=True)
+    return path
+
+
 def _load():
     global _lib
     if _lib is not None:
@@ -30,9 +37,7 @@ def _load():
             return _lib
         if not os.path.exists(_LIB) or (
                 os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", _LIB, _SRC],
-                check=True, capture_output=True)
+            build_library()
         lib = ctypes.CDLL(_LIB)
         lib.mpt_bvh_depth.restype = ctypes.c_int
         lib.mpt_bvh_depth.argtypes = [ctypes.c_int]

@@ -1,4 +1,4 @@
-"""Ray/primitive intersection — TPU-native dense formulation.
+"""Ray/primitive intersection — the dense formulation.
 
 Semantics match the reference GLSL intersectors
 (shaders/raytracer_func.frag:354-705): every primitive is intersected in
@@ -6,12 +6,12 @@ its canonical local frame (ray mapped by the inverse transform, direction
 re-normalized), and the winning hit is chosen by WORLD-space distance
 |O_world - P_world| because local scales differ per primitive.
 
-The TPU formulation replaces the per-thread BVH stack walk with dense
+The dense formulation replaces the per-thread BVH stack walk with
 [ray_tile, prim_chunk] batch intersection: primitives are grouped by type
-(so each kernel is branch-free), transforms are applied as batched matmuls
-(MXU-eligible), and chunks are folded with a running arg-min via lax.scan.
-This maps the reference's SIMT divergence onto lockstep vector hardware —
-see SURVEY.md §7 "Hard parts".
+(so each test is branch-free), transforms are applied as batched einsums,
+and chunks are folded with a running arg-min via lax.scan — see SURVEY.md
+§7 "Hard parts". The SoA forms below (SOA_FNS) are the same tests over
+separate component arrays, which the whole-pass kernel folds with.
 
 Reference quirks preserved on purpose (the quirks are the spec):
   - OrientedQuad is one-sided (rejects D.z > -EPS) and has NO a>0 check
@@ -227,6 +227,122 @@ SHAPE_FNS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# SoA shape tests: the same intersectors over separate x/y/z component
+# arrays (any matching shapes). Each returns (a, valid, dircode) given
+# local-frame ray components. Mirrors the AoS tests above exactly, minus
+# the reverse-mode guards (the SoA forms are never differentiated).
+# ---------------------------------------------------------------------------
+
+def sphere_soa(ox, oy, oz, dx, dy, dz):
+    OO = ox * ox + oy * oy + oz * oz
+    OD = ox * dx + oy * dy + oz * dz
+    D2 = dx * dx + dy * dy + dz * dz
+    delta4 = OD * OD - D2 * (OO - 1.0)
+    sq = jnp.sqrt(jnp.maximum(delta4, 0.0))
+    a1 = -(OD + sq) / D2
+    a2 = -(OD - sq) / D2
+    ok = delta4 > 0.0
+    v1 = ok & (a1 > EPSILON)
+    v2 = ok & (a2 > EPSILON)
+    a = jnp.where(v1, a1, jnp.where(v2, a2, FLT_MAX))
+    return a, v1 | v2, jnp.zeros_like(a, jnp.int32)
+
+
+def quad_soa(ox, oy, oz, dx, dy, dz):
+    facing = dz <= -EPSILON
+    a = -oz / dz
+    px = ox + a * dx
+    py = oy + a * dy
+    inside = (jnp.abs(px) <= 1.0) & (jnp.abs(py) <= 1.0)
+    valid = facing & inside
+    return jnp.where(valid, a, FLT_MAX), valid, jnp.zeros_like(a, jnp.int32)
+
+
+def cube_soa(ox, oy, oz, dx, dy, dz):
+    o = (ox, oy, oz)
+    d = (dx, dy, dz)
+    al = jnp.full_like(ox, FLT_MAX)
+    face = jnp.zeros_like(ox, jnp.int32)
+    for c in range(6):
+        c0 = c // 2
+        c1 = (c0 + 1) % 3
+        c2 = (c0 + 2) % 3
+        cd = np.float32(-1.0 + 2.0 * (c % 2))
+        a = (cd - o[c0]) / d[c0]
+        v = (
+            (jnp.abs(d[c0]) > EPSILON)
+            & (a > EPSILON)
+            & (jnp.abs(o[c1] + a * d[c1]) <= 1.0)
+            & (jnp.abs(o[c2] + a * d[c2]) <= 1.0)
+            & (a < al)
+        )
+        al = jnp.where(v, a, al)
+        face = jnp.where(v, c, face)
+    return al, al < FLT_MAX, face
+
+
+def cylinder_soa(ox, oy, oz, dx, dy, dz):
+    al = jnp.full_like(ox, FLT_MAX)
+    cl = jnp.full_like(ox, -1, jnp.int32)
+    dz_ok = jnp.abs(dz) > EPSILON
+    for code, zplane in ((0, -1.0), (1, 1.0)):
+        a = (np.float32(zplane) - oz) / dz
+        rx = ox + a * dx
+        ry = oy + a * dy
+        v = dz_ok & (a > EPSILON) & (rx * rx + ry * ry < 1.0) & (a < al)
+        al = jnp.where(v, a, al)
+        cl = jnp.where(v, code, cl)
+    O2 = ox * ox + oy * oy
+    OD = ox * dx + oy * dy
+    D2 = dx * dx + dy * dy
+    delta4 = OD * OD - D2 * (O2 - 1.0)
+    a = -(OD + jnp.sqrt(jnp.maximum(delta4, 0.0))) / D2
+    z = oz + a * dz
+    v = (delta4 > 0.0) & (a > EPSILON) & (a < al) & (jnp.abs(z) < 1.0)
+    al = jnp.where(v, a, al)
+    cl = jnp.where(v, 2, cl)
+    return al, al < FLT_MAX, cl
+
+
+def cone_soa(ox, oy, oz, dx, dy, dz):
+    tl = jnp.full_like(ox, FLT_MAX)
+    cl = jnp.full_like(ox, -1, jnp.int32)
+    t0 = (-1.0 - oz) / dz
+    rx = ox + t0 * dx
+    ry = oy + t0 * dy
+    v = ((jnp.abs(dz) > EPSILON) & (t0 > EPSILON)
+         & (rx * rx + ry * ry < 1.0) & (t0 < tl))
+    tl = jnp.where(v, t0, tl)
+    cl = jnp.where(v, 0, cl)
+    coz = oz - 1.0
+    dco = dx * ox + dy * oy + dz * coz
+    coco = ox * ox + oy * oy + coz * coz
+    a_ = dz * dz - np.float32(0.8)
+    b_ = 2.0 * (dz * coz - dco * np.float32(0.8))
+    c_ = coz * coz - coco * np.float32(0.8)
+    det = b_ * b_ - 4.0 * a_ * c_
+    sq = jnp.sqrt(jnp.maximum(det, 0.0))
+    t1 = (-b_ - sq) / (2.0 * a_)
+    t2 = (-b_ + sq) / (2.0 * a_)
+    t1 = jnp.where(jnp.abs(oz + t1 * dz) > 1.0, FLT_MAX, t1)
+    t2 = jnp.where(jnp.abs(oz + t2 * dz) > 1.0, FLT_MAX, t2)
+    t = jnp.minimum(t1, t2)
+    v = (det > 0.0) & (t < tl)
+    tl = jnp.where(v, t, tl)
+    cl = jnp.where(v, 2, cl)
+    return tl, tl < FLT_MAX, cl
+
+
+SOA_FNS = {
+    CODE_SPHERE: sphere_soa,
+    CODE_CUBE: cube_soa,
+    CODE_CYLINDER: cylinder_soa,
+    CODE_CONE: cone_soa,
+    CODE_ORIENTED_QUAD: quad_soa,
+}
+
+
 def triangle_batch(O, D, va, vb, vc):
     """Moller-Trumbore over a triangle chunk
     (raytracer_func.frag:354-396). O, D: [N, 3] mesh-local (D normalized);
@@ -259,8 +375,7 @@ def _local_rays(inv_c, O, D):
     """Map world rays into each primitive's local frame.
 
     inv_c: [C,4,4]; O, D: [N,3]. Returns Oi, Di (normalized): [N,C,3].
-    Batched matmul — the per-(ray,prim) transform is the MXU-friendly part
-    of the trace (intersect_prim analog, raytracer_func.frag:686-688).
+    Batched einsum (intersect_prim analog, raytracer_func.frag:686-688).
     """
     Oi = jnp.einsum("cij,nj->nci", inv_c[:, :3, :3], O, precision=PRECISION) + inv_c[None, :, :3, 3]
     Di = jnp.einsum("cij,nj->nci", inv_c[:, :3, :3], D, precision=PRECISION)
@@ -336,8 +451,8 @@ def trace_mesh_instance(best: Hit, O, D, inv, mesh_transfo, prim_index: int,
     the distance compare stays in world space).
     va/vb/vc: [T,3] padded to chunk multiple (padding = degenerate tris).
     """
-    Oi = O @ inv[:3, :3].T + inv[:3, 3]
-    Di = normalize(D @ inv[:3, :3].T)
+    Oi = jnp.matmul(O, inv[:3, :3].T, precision=PRECISION) + inv[:3, 3]
+    Di = normalize(jnp.matmul(D, inv[:3, :3].T, precision=PRECISION))
     T = va.shape[0]
     nchunks = T // chunk
     va_s = va.reshape(nchunks, chunk, 3)

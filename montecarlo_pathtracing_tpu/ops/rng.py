@@ -128,7 +128,7 @@ def uniform3(state):
 
 # ---------------------------------------------------------------------------
 # SoA variants: state as a tuple (s0, s1, s2) of [N] uint32 arrays — the
-# TPU-layout twin of the [N, 3] API above (see ops/vec.py for why). Bit-
+# SoA twin of the [N, 3] API above (see ops/vec.py). Bit-
 # identical streams to the AoS functions.
 # ---------------------------------------------------------------------------
 

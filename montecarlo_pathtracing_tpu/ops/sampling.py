@@ -106,7 +106,7 @@ def random_ray_masked(state, d, roughness, mask):
 
 # ---------------------------------------------------------------------------
 # SoA variants (vec3 = tuple of [N] arrays; see ops/vec.py). Bit-equal draw
-# schedule to the AoS versions; used by the TPU-layout integrator.
+# schedule to the AoS versions; used by the SoA integrator.
 # ---------------------------------------------------------------------------
 
 def sample_hemisphere_soa(state, roughness, mask):

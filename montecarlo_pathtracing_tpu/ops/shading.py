@@ -126,7 +126,7 @@ def intersection_info(scene, hit: Hit, prev_n=None, prev_p=None):
 
 
 # ---------------------------------------------------------------------------
-# SoA intersection_info (vec3 = tuple of [M] arrays) — the TPU-layout twin
+# SoA intersection_info (vec3 = tuple of [M] arrays) — the SoA twin
 # of the function above; used by the SoA integrator. Same formulas.
 # ---------------------------------------------------------------------------
 
@@ -213,9 +213,8 @@ def intersection_info_soa(scene, hit, prev=None):
 
     if scene.tri_va.shape[0] > 0:
         tri = jnp.clip(hit.tri, 0, scene.tri_va.shape[0] - 1)
-        # ONE row-form gather per table ([9, T] take along axis 1) — 18
-        # separate 1-D takes cost ~milliseconds EACH on TPU (random
-        # 4-byte accesses), the row form ~0.03 ms (see device.py)
+        # ONE row-form gather per table ([9, T] take along axis 1)
+        # instead of 18 separate 1-D takes (see device.py)
         if scene.flat_face:
             pr = jnp.take(scene.tri_pos_rows, tri, axis=1)   # [9, M]
             A, B, C = pr[0:3], pr[3:6], pr[6:9]              # [3, M]

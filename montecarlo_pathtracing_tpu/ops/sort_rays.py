@@ -1,32 +1,23 @@
-"""Inter-bounce ray re-sorting: restore tile coherence for secondary rays.
+"""Inter-bounce ray re-sorting: wavefront compaction for secondary rays.
 
 The reference's BVH walk is per-ray, so incoherent bounce rays still get
-log-depth traversal (shaders/raytracer_func.frag:734-769). The TPU
-frontier culls (chunk/super AABB votes and worklists) operate per RAY
-TILE instead: a tile's rays collectively decide which primitive chunks
-run. Primary rays arrive tile-coherent by the renderer's block32 pixel
-layout; after one diffuse bounce directions are hemisphere-random and a
-tile's union frustum covers the whole scene, so every chunk runs — the
-measured cliff on large scenes (colonnes, meshes).
-
-This module makes culling work again for bounce N>0 the TPU way: between
-bounces, sort the whole wavefront by a spatial key
+log-depth traversal (shaders/raytracer_func.frag:734-769). A route that
+culls per block of rays instead needs neighbouring rays to be coherent,
+and after one diffuse bounce they are not. Between bounces this module
+sorts the whole wavefront by a spatial key
 
     key = direction_octant (3 bits) << 27 | morton9(origin) (27 bits)
 
-so each kernel tile holds rays leaving the same region of space in the
-same direction octant — a tight bundle whose frustum hits few chunks.
-Terminated rays get key 0xFFFFFFFF and are PARKED on an origin far
-outside every scene AABB pointing away (+z above everything), so the
-tail tiles they compact into fail every box test and cost almost
-nothing — free early-exit for converged paths.
+so each block holds rays leaving the same region of space in the same
+direction octant. Terminated rays get key 0xFFFFFFFF and are PARKED on an
+origin far outside every scene AABB pointing away (+z above everything),
+so they compact into tail blocks that hit nothing.
 
 Sorting is pure lane permutation: every per-ray carry (ray, throughput,
 RNG counters, pixel id) rides the same permutation and the per-lane math
-is unchanged, so results are BIT-identical to the unsorted wavefront
-(the culls are conservative per ray). Measured cost on TPU v5e:
-~0.05 ms argsort + ~0.15 ms state gathers per bounce at 64K rays —
-noise against a multi-ms trace.
+is unchanged, so results match the unsorted wavefront up to fma
+contraction. Off by default (models/montecarlo.random_path_soa
+sort_rays); whether compaction pays on the GPU is an open question.
 """
 from __future__ import annotations
 
@@ -73,11 +64,9 @@ def sort_wavefront(key, arrays):
     """argsort by key and gather every array in `arrays` (a flat list of
     [N] arrays) by the permutation. Returns (perm, gathered list).
 
-    TPU detail: K separate 1-D gathers cost ~milliseconds each (one
-    4-byte random access per index); ONE row-form gather of a stacked
-    [K, N] array along axis 1 moves K*4 contiguous bytes per index and
-    costs ~0.03 ms at 64K. Arrays are stacked by dtype (f32 as-is,
-    everything else bitcast/widened to uint32), gathered in two takes,
+    One row-form gather of a stacked [K, N] array along axis 1 per dtype
+    instead of K separate 1-D gathers. Arrays are stacked by dtype (f32
+    as-is, everything else widened to uint32), gathered in two takes,
     and unstacked — order preserved."""
     perm = jnp.argsort(key)
     f32_idx = [i for i, a in enumerate(arrays) if a.dtype == jnp.float32]

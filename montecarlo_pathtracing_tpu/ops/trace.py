@@ -1,14 +1,11 @@
 """Scene-level trace: fold every primitive group into a closest Hit.
 
-The TPU-native replacement for traverse_all_bvh / intersect_bvh
-(shaders/raytracer_func.frag:731-781). Instead of a per-thread stack walk
-over the BVH heap — pure divergence on a lockstep vector machine — the
-dense path intersects every ray against every primitive, grouped by type so
-each shape test is branch-free, with transforms applied as batched einsums
-(MXU work) and chunks folded by a running arg-min. For the scenes the
-reference ships (9 .. ~1100 prims) this is bandwidth-friendly and beats a
-scalarized stack walk on TPU; the Pallas traversal kernel (ops/pallas_trace)
-takes over when scenes grow.
+The dense replacement for traverse_all_bvh / intersect_bvh
+(shaders/raytracer_func.frag:731-781): instead of a per-ray stack walk over
+the BVH heap, every ray is intersected against every primitive, grouped by
+type so each shape test is branch-free, with transforms applied as batched
+einsums and chunks folded by a running arg-min. This is the reference
+route: it runs on every backend, is differentiable, and serves meshes.
 
 Tie-breaking: a candidate replaces the best hit only if strictly closer in
 WORLD distance (the GLSL compares `dist < closest.dist` per intersector);
@@ -18,54 +15,27 @@ framework-vs-oracle parity is exact.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import jax.numpy as jnp
 
-from . import intersect
-from .intersect import Hit, miss_hit, trace_analytic_group, trace_mesh_instance
+from . import vec
+from .intersect import (
+    Hit, FLT_MAX, SOA_FNS, miss_hit, trace_analytic_group, trace_mesh_instance)
 
 
-def trace(scene, O, D, *, use_pallas: bool = False,
-          pallas_interpret: bool = False) -> Hit:
-    """Closest hit of world rays O, D: [N,3] against the whole scene.
-
-    use_pallas routes the analytic groups through the fused VMEM kernel
-    (ops/pallas_trace.py) — same winners, ~no HBM intermediates; the
-    dense XLA path remains the default and the reference semantics.
-    """
+def trace(scene, O, D) -> Hit:
+    """Closest hit of world rays O, D: [N,3] against the whole scene."""
     best = miss_hit(O.shape[:-1])
-    if use_pallas:
-        from .pallas_trace import trace_analytic_group_pallas, PRIM_CHUNK
     for gi, code in enumerate(scene.group_codes):
-        # the fused kernel pads groups to PRIM_CHUNK lanes — a win only
-        # when the group actually fills them (measured: 6x faster on the
-        # 895-prim colonnes scene, slower on the 9-prim box)
-        if use_pallas and scene.group_prim[gi].shape[0] >= PRIM_CHUNK:
-            best = trace_analytic_group_pallas(
-                best, O, D, code,
-                scene.group_transfo[gi], scene.group_inv[gi],
-                scene.group_prim[gi], interpret=pallas_interpret,
-            )
-            continue
         best = trace_analytic_group(
             best, O, D, code,
             scene.group_transfo[gi], scene.group_inv[gi],
             scene.group_prim[gi], scene.group_chunk[gi],
         )
-    if use_pallas and scene.mesh_prim_index:
-        from .pallas_trace import trace_mesh_instance_pallas
     for mi, prim_index in enumerate(scene.mesh_prim_index):
         off = scene.mesh_tri_offset[mi]
         cnt = scene.mesh_tri_padded[mi]
-        if use_pallas:
-            best = trace_mesh_instance_pallas(
-                best, O, D,
-                scene.inv_transfo[prim_index],
-                scene.mesh_transfo[prim_index], prim_index,
-                scene.tri_va[off:off + cnt], scene.tri_vb[off:off + cnt],
-                scene.tri_vc[off:off + cnt],
-                tri_offset=off, interpret=pallas_interpret,
-            )
-            continue
         chunk = min(scene.tri_chunk, cnt)
         best = trace_mesh_instance(
             best, O, D,
@@ -84,18 +54,9 @@ def hit_any(scene, O, D):
 
 
 # ---------------------------------------------------------------------------
-# SoA trace: the TPU-layout fast path (vec3 = tuple of [M] arrays, see
-# ops/vec.py). Same winners as trace(); used by the SoA integrator with
-# the Pallas kernels. M must be a multiple of pallas_trace.RAY_TILE.
+# SoA hit record (vec3 = tuple of [M] arrays, see ops/vec.py), the layout
+# the SoA integrator shades from.
 # ---------------------------------------------------------------------------
-
-from typing import NamedTuple
-
-import jax.numpy as jnp
-
-from . import vec
-from .intersect import FLT_MAX, CODE_MESH
-
 
 class HitS(NamedTuple):
     """SoA closest-intersection record (Hit twin)."""
@@ -132,139 +93,14 @@ def _better_soa(best: HitS, cand: HitS) -> HitS:
     )
 
 
-def trace_soa(scene, o, d, *, interpret: bool = False,
-              cull_chunks: bool | None = None) -> HitS:
-    """Closest hit in SoA layout via the Pallas kernels. o, d: vec3 of
-    [M] with M a RAY_TILE multiple (pad with unit-z dummy rays).
-
-    cull_chunks: chunk-AABB frontier culling (Morton-coherent chunks,
-    scene/device.py) — the default (None = auto) enables it for every
-    group/mesh spanning more than one 128-lane kernel chunk. Winners are
-    identical either way (the cull is conservative); False forces the
-    brute fold (kept for equivalence tests)."""
-    from .pallas_trace import (
-        group_best_rows, mesh_best_rows, _pad_group, pad_tris, PRIM_CHUNK)
-    from .sparse_trace import (
-        group_best_rows_sparse, mesh_best_rows_sparse, AN_TILE, MESH_TILE)
-
-    m = o[0].shape[0]
-    o_rows = jnp.stack(o)
-    d_rows = jnp.stack(d)
-    best = _miss_soa(m)
-    cull = cull_chunks is not False   # None (auto) or True
-
-    for gi, code in enumerate(scene.group_codes):
-        if scene.group_prim[gi].shape[0] <= SMALL_GROUP_MAX:
-            best = _small_group_soa(
-                best, o, d, code, scene.group_transfo[gi],
-                scene.group_inv[gi], scene.group_prim[gi])
-            continue
-        inv_r, trf_r, pid = _pad_group(
-            scene.group_transfo[gi], scene.group_inv[gi],
-            scene.group_prim[gi])
-        # worklist route: fine-grained (8-prim) frustum culling with
-        # nearest-first occlusion refinement; the prim table is DMA'd
-        # per 8-prim block so there is no SMEM cap — the gate only
-        # bounds the XLA-side [ntiles, nblocks] entry matrix
-        sparse = (cull and m % AN_TILE == 0
-                  and inv_r.shape[1] <= (1 << 17))
-        if sparse:
-            dist, row, a, dircode = group_best_rows_sparse(
-                o_rows, d_rows, code, inv_r, trf_r, pid,
-                scene.group_super_bb[gi], interpret=interpret)
-        else:
-            multi = inv_r.shape[1] > PRIM_CHUNK
-            dist, row, a, dircode = group_best_rows(
-                o_rows, d_rows, code, inv_r, trf_r, pid,
-                cbb=scene.group_chunk_bb[gi] if (cull and multi) else None,
-                interpret=interpret)
-        ok = row >= 0
-        r = jnp.where(ok, row, 0)
-        # one stacked row gather (TPU: row-form takes are ~400x cheaper
-        # than per-row 1-D takes — see ops/sort_rays.sort_wavefront)
-        tabg = jnp.take(
-            jnp.concatenate([inv_r, trf_r, pid.astype(jnp.float32)], 0),
-            r, axis=1)                          # [25, M]
-        inv_g = tabg[0:12]
-        trf_g = tabg[12:24]
-        pid_g = jnp.where(ok, tabg[24].astype(jnp.int32), -1)
-        oi = vec.apply_affine(inv_g, o)
-        di = vec.normalize(vec.apply_linear(inv_g, d), eps=1e-30)
-        pl = vec.axpy(a, di, oi)
-        pg = vec.apply_affine(trf_g, pl)
-        cand = HitS(
-            jnp.where(ok, dist, FLT_MAX),
-            pid_g,
-            jnp.where(ok, code, -1).astype(jnp.int32),
-            dircode,
-            jnp.full((m,), -1, jnp.int32),
-            pl, pg,
-        )
-        best = _better_soa(best, cand)
-
-    for mi_, prim_index in enumerate(scene.mesh_prim_index):
-        off = scene.mesh_tri_offset[mi_]
-        cnt = scene.mesh_tri_padded[mi_]
-        inv = scene.inv_transfo[prim_index]
-        mtrf = scene.mesh_transfo[prim_index]
-        # single-matrix transform: scalar coefficients over [M] rows
-        oi = (inv[0, 0] * o[0] + inv[0, 1] * o[1] + inv[0, 2] * o[2] + inv[0, 3],
-              inv[1, 0] * o[0] + inv[1, 1] * o[1] + inv[1, 2] * o[2] + inv[1, 3],
-              inv[2, 0] * o[0] + inv[2, 1] * o[1] + inv[2, 2] * o[2] + inv[2, 3])
-        di = vec.normalize(
-            (inv[0, 0] * d[0] + inv[0, 1] * d[1] + inv[0, 2] * d[2],
-             inv[1, 0] * d[0] + inv[1, 1] * d[1] + inv[1, 2] * d[2],
-             inv[2, 0] * d[0] + inv[2, 1] * d[1] + inv[2, 2] * d[2]),
-            eps=1e-30)
-        tri = pad_tris(scene.tri_va[off:off + cnt],
-                       scene.tri_vb[off:off + cnt],
-                       scene.tri_vc[off:off + cnt])
-        multi = tri.shape[1] > PRIM_CHUNK
-        if cull and multi and m % MESH_TILE == 0:
-            # worklist route: 256-ray tiles x 128-tri chunks decided by
-            # the XLA-side frustum test; includes instance-level pre-cull
-            # for free (tiles missing the whole mesh get zero chunks)
-            a, row = mesh_best_rows_sparse(
-                jnp.stack(oi), jnp.stack(di), tri,
-                scene.mesh_chunk_bb[mi_], interpret=interpret)
-        else:
-            a, row = mesh_best_rows(
-                jnp.stack(oi), jnp.stack(di), tri,
-                cbb=scene.mesh_chunk_bb[mi_] if (cull and multi) else None,
-                sbb=scene.mesh_super_bb[mi_] if (cull and multi) else None,
-                interpret=interpret)
-        ok = row >= 0
-        pl = vec.axpy(a, di, oi)
-        pg = (mtrf[0, 0] * pl[0] + mtrf[0, 1] * pl[1] + mtrf[0, 2] * pl[2] + mtrf[0, 3],
-              mtrf[1, 0] * pl[0] + mtrf[1, 1] * pl[1] + mtrf[1, 2] * pl[2] + mtrf[1, 3],
-              mtrf[2, 0] * pl[0] + mtrf[2, 1] * pl[1] + mtrf[2, 2] * pl[2] + mtrf[2, 3])
-        dist = vec.length(vec.sub(o, pg))
-        cand = HitS(
-            jnp.where(ok, dist, FLT_MAX),
-            jnp.where(ok, prim_index, -1).astype(jnp.int32),
-            jnp.where(ok, CODE_MESH, -1).astype(jnp.int32),
-            jnp.zeros((m,), jnp.int32),
-            jnp.where(ok, off + row, -1).astype(jnp.int32),
-            pl, pg,
-        )
-        best = _better_soa(best, cand)
-    return best
-
-
-# Groups smaller than this use the scalar-coefficient XLA fold below
-# instead of the Pallas kernel (whose PRIM_CHUNK lane padding would waste
-# 128/P of the VPU on tiny groups).
-SMALL_GROUP_MAX = 96
-
-
 def _small_group_soa(best: HitS, o, d, code, trf, inv, pid) -> HitS:
-    """SoA fold over a SMALL analytic group: python loop over primitives,
-    per-prim scalar matrix coefficients broadcast over [M] ray rows —
-    fully XLA-fused, zero lane padding. Same winners/ordering as the
-    Pallas and dense paths (strictly-closer, group order)."""
-    from .pallas_trace import _SOA_FNS
-
-    fn = _SOA_FNS[code]
+    """SoA fold over one analytic group: python loop over primitives,
+    per-prim scalar matrix coefficients broadcast over [M] ray rows — the
+    structure of the whole-pass kernel's fold (models/megakernel.py) in
+    plain XLA. Same winners/ordering as trace_analytic_group
+    (strictly-closer, group order); the tests use it to hold SOA_FNS to
+    the AoS intersectors."""
+    fn = SOA_FNS[code]
     m = o[0].shape[0]
     for i in range(trf.shape[0]):
         iv = inv[i]

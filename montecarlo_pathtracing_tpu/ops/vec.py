@@ -1,11 +1,10 @@
 """SoA vec3 math: vectors as (x, y, z) tuples of [N] arrays.
 
-THE load-bearing TPU layout decision (SURVEY.md §7 "ray SoA"): a [N, 3]
-float32 array tiles to (8, 128) physical tiles on TPU, so its 3-wide lane
-dimension pads to 128 — 42x wasted memory, bandwidth and VPU lanes on
-every elementwise op. Structure-of-arrays [N] components use full lanes.
-The whole hot path (integrator, sampling, shading, RNG) runs on these;
-[N, 3] appears only at API boundaries.
+The ray layout of the dense route (SURVEY.md §7 "ray SoA"): each vec3
+component is its own contiguous [N] array, so every elementwise op reads
+and writes unit-stride rows with no 3-wide minor dimension. The dense
+integrator, sampling, shading and RNG run on these; [N, 3] appears only
+at API boundaries.
 
 All helpers are shape-polymorphic over the component arrays.
 """

@@ -1,11 +1,19 @@
 """Restartable multi-host launcher.
 
 The reference is a single-process GL app with no failure handling beyond
-shader-compile errors (SURVEY.md §5). For pod-scale renders the framework
+shader-compile errors (SURVEY.md §5). For multi-host renders the framework
 provides: `jax.distributed` initialization from env/flags, a render loop
 that checkpoints the accumulation state every K passes, and crash-resume —
 a relaunched process picks up at the last checkpointed pass, so losing a
 host costs at most K passes of work.
+
+One process per host: a single JAX process drives all the GPUs of its
+host (shard over them with `Renderer(shard_devices=N)` or
+parallel/sharding.py). A JAX process reserves most of a card's memory
+when it first uses it, so several processes on one host must each own
+their own card (e.g. CUDA_VISIBLE_DEVICES=k per process) or a share of
+it (XLA_PYTHON_CLIENT_MEM_FRACTION); two processes on one card otherwise
+fail for want of memory.
 
 Launch (per host):
   python -m montecarlo_pathtracing_tpu render --distributed \\

@@ -10,7 +10,7 @@ Reimplements the reference camera math:
   - camera-ray generation from invPV / invV (shaders/raytracer.vert:9-22):
     O = invV*(0,0,0,1); Dir = normalize((invPV*(c,1,1)).xyz/w - O)
 
-Design note (TPU-first): the reference evaluates the unprojection at the 4
+Design note: the reference evaluates the unprojection at the 4
 corner vertices of a fullscreen triangle strip and lets the rasterizer
 interpolate Dir; we evaluate the same unprojection *per pixel* as a dense
 vectorized op, which is the intended pinhole camera (and what our CPU
@@ -130,29 +130,20 @@ def camera_rays(proj: np.ndarray, view: np.ndarray, width: int, height: int):
     Returns (origin [3], dirs [H, W, 3], screen_tc [H, W, 2]) as jnp float32.
     Row 0 is the BOTTOM of the image (GL raster convention); flip on write.
     Pixel centers sample screen_tc = ((x+.5)/W, (y+.5)/H).
-    """
-    pv = (np.asarray(proj, np.float64) @ np.asarray(view, np.float64))
-    inv_pv = np.linalg.inv(pv).astype(F32)
-    inv_v = np.linalg.inv(np.asarray(view, np.float64)).astype(F32)
 
-    o = inv_v[:3, 3].copy()  # invV * (0,0,0,1)
-    tx = (jnp.arange(width, dtype=jnp.float32) + 0.5) / width
-    ty = (jnp.arange(height, dtype=jnp.float32) + 0.5) / height
-    tc = jnp.stack(jnp.meshgrid(tx, ty, indexing="xy"), axis=-1)  # [H,W,2]
-    c = 2.0 * tc - 1.0
-    q = (
-        c[..., 0:1] * inv_pv[:, 0]
-        + c[..., 1:2] * inv_pv[:, 1]
-        + (inv_pv[:, 2] + inv_pv[:, 3])
-    )  # invPV @ (cx, cy, 1, 1) -> [H,W,4]
-    p = q[..., :3] / q[..., 3:4]
-    d = p - o
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    return jnp.asarray(o), d, tc
+    Computed on the host in IEEE float32 (camera_rays_np), never on the
+    device: screen_tc seeds each pixel's RNG stream by its float BITS
+    (ops/rng.srand_soa), and XLA's float division on a GPU is not
+    correctly rounded (on an H100, (y+.5)/600 misses IEEE float32 by an
+    ulp for 342 of the 600 rows), which would give those pixels entirely
+    different random paths than the CPU oracle's.
+    """
+    o, d, tc = camera_rays_np(proj, view, width, height)
+    return jnp.asarray(o), jnp.asarray(d), jnp.asarray(tc)
 
 
 def camera_rays_np(proj, view, width, height):
-    """NumPy twin of camera_rays for the CPU oracle (float32)."""
+    """The primary rays in NumPy float32: (origin, dirs, screen_tc)."""
     pv = np.asarray(proj, np.float64) @ np.asarray(view, np.float64)
     inv_pv = np.linalg.inv(pv).astype(F32)
     inv_v = np.linalg.inv(np.asarray(view, np.float64)).astype(F32)

@@ -1,7 +1,7 @@
 """Differentiable rendering: pixel gradients w.r.t. scene parameters.
 
 A brand-new capability (the reference is a forward-only GL renderer;
-SURVEY.md §2.3 "Gradient/differentiability: None"). The whole megakernel
+SURVEY.md §2.3 "Gradient/differentiability: None"). The dense integrator
 (models/montecarlo.py) is pure JAX, so reverse-mode AD through the bounce
 loop gives pixel gradients directly. Sampling is DETACHED
 (detach_sampling=True puts stop_gradient on sampled directions): gradients
@@ -9,7 +9,9 @@ flow through the throughput/attenuation chain, the Schlick/spec factors
 and emission — the detached-sampling path-replay estimator — while the
 non-differentiable discrete decisions (hit selection, material case, the
 mixed-case coin) replay identically because they only depend on the
-RNG counters and comparisons. Differentiable inputs:
+RNG counters and comparisons. Gradients always take the dense route
+(models/montecarlo.choose_route): the whole-pass kernel has no VJP, and
+the dense trace keeps the geometric IOR term. Differentiable inputs:
 
   - per-prim albedo/alpha (scene.color), material vector
     (shininess, roughness, emissivity, area) (scene.mat)
@@ -58,32 +60,19 @@ def apply_params(scene: DeviceScene, p: SceneParams) -> DeviceScene:
     return dataclasses.replace(scene, color=p.color, mat=mat)
 
 
-def _auto_fast() -> bool:
-    return jax.devices()[0].platform == "tpu"
-
-
-@partial(jax.jit, static_argnames=("n_passes", "nb_bounces", "integrator",
-                                   "use_pallas", "pallas_interpret"))
+@partial(jax.jit, static_argnames=("n_passes", "nb_bounces", "integrator"))
 def render_mean(scene: DeviceScene, params: SceneParams, origin, dirs, tc,
                 n_passes: int, nb_bounces: int,
-                integrator: str = "montecarlo",
-                use_pallas: bool = False, pallas_interpret: bool = False):
+                integrator: str = "montecarlo"):
     """Mean of n_passes progressive passes — the differentiable render.
-    dirs/tc: [N,3]/[N,2] flattened rays. Returns [N,3].
-
-    use_pallas routes through the fused trace kernels with the trace
-    DETACHED from the AD graph (no kernel VJP needed; exact for
-    color/mat/light gradients, drops only the geometric IOR term — see
-    models/montecarlo._trace_dispatch). The dense path keeps the full
-    IOR gradient and remains the CPU/oracle-parity reference."""
+    dirs/tc: [N,3]/[N,2] flattened rays. Returns [N,3]."""
     fn = get_integrator(integrator)
     scene = apply_params(scene, params)
 
     def body(k, acc):
         rgb = fn(scene, origin, dirs, tc, k,
                  nb_bounces=nb_bounces, refract_ind=params.refract_ind,
-                 detach_sampling=True, use_pallas=use_pallas,
-                 pallas_interpret=pallas_interpret)
+                 detach_sampling=True)
         return acc + rgb
 
     acc = jax.lax.fori_loop(0, n_passes, body,
@@ -92,18 +81,14 @@ def render_mean(scene: DeviceScene, params: SceneParams, origin, dirs, tc,
 
 
 def pixel_grads(scene, params, origin, dirs, tc, *, n_passes=1,
-                nb_bounces=3, integrator="montecarlo",
-                use_pallas: bool | None = None):
+                nb_bounces=3, integrator="montecarlo"):
     """Gradient of the mean pixel luminance w.r.t. every scene parameter —
     the 'pixel-grad' quantity checked against the CPU reference
-    (BASELINE.json metric). use_pallas None = auto (fast kernels on
-    TPU)."""
-    if use_pallas is None:
-        use_pallas = _auto_fast()
+    (BASELINE.json metric)."""
 
     def mean_lum(p):
         img = render_mean(scene, p, origin, dirs, tc, n_passes, nb_bounces,
-                          integrator, use_pallas)
+                          integrator)
         return img.mean()
 
     return jax.grad(mean_lum)(params)
@@ -113,8 +98,7 @@ def inverse_render_fit(scene, target, origin, dirs, tc, *, prim_ids,
                        steps=100, lr=5e-2, n_passes=2, nb_bounces=3,
                        fit_albedo=True, fit_alpha=False, fit_mat_cols=(),
                        fit_ior=False, fit_light=False,
-                       seed_params=None, verbose=False,
-                       use_pallas: bool | None = None):
+                       seed_params=None, verbose=False):
     """BASELINE config 4: recover the albedo/roughness (and optionally IOR)
     of the prims in `prim_ids` from a target image by Adam descent.
     Only the selected prims' color/mat rows receive updates (a mask is
@@ -126,17 +110,9 @@ def inverse_render_fit(scene, target, origin, dirs, tc, *, prim_ids,
     landscape discontinuous. Opt in via fit_alpha / fit_mat_cols (columns
     of (shininess, roughness, emissivity, area)) / fit_ior / fit_light
     when the target genuinely differs in those. Returns (params, losses).
-
-    Routing: use_pallas None (auto) picks the fast kernels on TPU —
-    EXCEPT when fit_ior is set, which forces the dense route: the fast
-    route's detached trace drops the geometric IOR term, and the
-    reference's clamped-Schlick quirk zeroes the retained term, so the
-    fast refract_ind gradient is ~0 and the fit would never move
-    (models/montecarlo._trace_dispatch)."""
+    """
     import optax
 
-    if use_pallas is None:
-        use_pallas = _auto_fast() and not fit_ior
     p0 = seed_params if seed_params is not None else params_of(scene)
     row_mask = np.zeros((scene.color.shape[0], 1), np.float32)
     for i in prim_ids:
@@ -153,7 +129,7 @@ def inverse_render_fit(scene, target, origin, dirs, tc, *, prim_ids,
 
     def loss_fn(p):
         img = render_mean(scene, p, origin, dirs, tc, n_passes, nb_bounces,
-                          "montecarlo", use_pallas)
+                          "montecarlo")
         return jnp.mean((img - target) ** 2)
 
     opt = optax.adam(lr)

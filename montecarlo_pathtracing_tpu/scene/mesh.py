@@ -6,7 +6,7 @@ Cylinder (:387), ClosedCylinder (:468), ClosedCone (:551), Tore (:602),
 area-weighted vertex normals (:125-141), and arbitrary-file import with
 smooth normals (:646-750 via Assimp — here a dependency-free OBJ parser).
 
-Geometry here is an independent TPU-framework design (flat numpy arrays),
+Geometry here is an independent design (flat numpy arrays),
 not a translation of the reference's vertex layouts.
 """
 from __future__ import annotations

@@ -231,7 +231,7 @@ def scene_mesh_demo(light_intensity=1.2) -> ScenePrimitives:
 def scene_mesh_hires(light_intensity=1.2) -> ScenePrimitives:
     """Large-mesh stress fixture: a 101,760-triangle lat-long sphere
     (sphere(160)) plus a 20k-tri torus — the >=50k-tri benchmark scene
-    for the per-mesh chunk-culling path (the scale the reference demos
+    for the mesh route (the scale the reference demos
     via Assimp imports, README.md 'Exemples de scenes')."""
     s = ScenePrimitives()
     s.add_oriented_quad(T(0, 0, -60) @ S(500, 500, 1), Material(BLANC))
@@ -252,8 +252,8 @@ def scene_stress(light_intensity=1.2, n_prims: int = 10240,
     spheres/cubes over a ground plane under one area light. New-framework
     fixture (the reference's traversal bound is ~2^27 prims via 29-deep
     BVH stacks, shaders/raytracer_func.frag:644,736, but it ships no
-    large scene) — used by benchmarks/stress_curve.py to demonstrate the
-    fused/worklist paths' scaling beyond the megakernel's SMEM cap."""
+    large scene) — used by benchmarks/stress_curve.py to measure how the
+    routes scale with primitive count."""
     rng = np.random.default_rng(seed)
     s = ScenePrimitives()
     s.add_oriented_quad(T(0, 0, -12) @ S(4000, 4000, 1), Material(GRIS))

@@ -1,5 +1,5 @@
 """Dependency-free PNG output (the reference displays via OpenGL/GLFW;
-headless TPU jobs write files instead — SURVEY.md §2.4)."""
+headless jobs write files instead — SURVEY.md §2.4)."""
 from __future__ import annotations
 
 import struct

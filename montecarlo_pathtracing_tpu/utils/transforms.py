@@ -14,10 +14,10 @@ import jax.numpy as jnp
 
 F32 = np.float32
 
-# Geometry transforms must run in true f32 on TPU: the MXU's default
-# bf16 accumulation (~3 decimal digits) visibly bends rays. All einsums in
-# the compute path pass this explicitly. These are tiny 3x3/4x4 contractions
-# (VPU work), so full precision costs nothing.
+# Geometry transforms must run in true f32: at default precision a GPU may
+# run an f32 contraction in TF32 (~3 decimal digits), which visibly bends
+# rays. Every einsum/matmul in the compute path passes this explicitly.
+# These are tiny 3x3/4x4 contractions, so full precision costs nothing.
 PRECISION = jax.lax.Precision.HIGHEST
 
 

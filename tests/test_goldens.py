@@ -1,7 +1,7 @@
 """Golden-statistics regression oracle for all built-in scenes.
 
 The reference's regression oracle is 26 golden screenshots in captures/
-(SURVEY.md §4). The TPU equivalent: recorded image statistics at a fixed
+(SURVEY.md §4). The equivalent here: recorded image statistics at a fixed
 tiny configuration (24x18, 2 spp, 5 bounces, default seeds — fully
 deterministic), asserted exactly-close on every run. A change to any
 intersector, sampler, material case, RNG stream or scene constructor

@@ -159,64 +159,13 @@ def test_grad_matches_cpu_oracle_fd(setup):
         f"AD {analytic} vs oracle FD {fd}")
 
 
-def test_fast_path_grads_match_dense(setup):
-    """The Pallas-route gradient (trace detached from the AD graph) must
-    equal the dense-route gradient for every leaf whose value cannot
-    move the hit geometry: color, mat, light_scale. (IOR keeps only its
-    Schlick/attenuation term on the fast route — compared on an OPAQUE
-    scene here, where the geometric term is exactly zero and the two
-    routes must agree on refract_ind too.)"""
-    import numpy as np
-    from montecarlo_pathtracing_tpu.render.diff import (
-        params_of, pixel_grads)
-
-    dev, origin, dirs, tc = setup
-    p = params_of(dev, refract_ind=1.3)
-    g_dense = pixel_grads(dev, p, origin, dirs, tc, n_passes=2,
-                          nb_bounces=5, use_pallas=False)
-    # interpret mode: same kernel semantics without a TPU
-    from montecarlo_pathtracing_tpu.render.diff import render_mean
-    import jax
-
-    def mean_lum(pp):
-        img = render_mean(dev, pp, origin, dirs, tc, 2, 5, "montecarlo",
-                          True, True)
-        return img.mean()
-
-    g_fast = jax.grad(mean_lum)(p)
-    np.testing.assert_allclose(np.asarray(g_fast.color),
-                               np.asarray(g_dense.color),
-                               rtol=1e-4, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(g_fast.mat),
-                               np.asarray(g_dense.mat),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(g_fast.light_scale),
-                               np.asarray(g_dense.light_scale),
-                               rtol=1e-4, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(g_fast.refract_ind),
-                               np.asarray(g_dense.refract_ind),
-                               rtol=1e-4, atol=1e-7)
-    # and the gradient must be nonzero somewhere (vacuity guard)
-    assert float(np.abs(np.asarray(g_dense.color)).max()) > 0
-
-
-def test_fast_path_ior_grad_documented_gap():
-    """VERDICT round-2 weak #6: pin the fast-path IOR gradient to its
-    DOCUMENTED behavior on a refractive scene so silent drift fails CI.
-
-    The dense route carries the full refract_ind gradient (geometric
-    term through the refraction march). The fast (Pallas) route detaches
-    the trace, dropping the geometric term, and the reference's
-    clamped-Schlick quirk (rs saturates to 1 for front-facing hits,
-    tp/montecarlo.frag:91-98) zeroes the retained attenuation term — so
-    the fast refract_ind gradient is expected to be ~0. Assert:
-      (a) the dense gradient is nonzero (the test is not vacuous),
-      (b) the fast gradient stays within the stated envelope
-          |g_fast| <= 0.05 * |g_dense| + 1e-7 (i.e. 'absent', never
-          'wrong sign with magnitude'),
-      (c) inverse_render_fit auto-routes fit_ior through the dense path.
-    """
-    from montecarlo_pathtracing_tpu.models.montecarlo import raytrace
+def test_ior_grad_keeps_geometric_term():
+    """Gradients always take the dense route (the kernel has no VJP), and
+    the dense trace is differentiated, so on a refractive scene the IOR
+    gradient carries its geometric term through the refraction march —
+    nonzero and finite, and routed dense even when a GPU is present."""
+    from montecarlo_pathtracing_tpu.models.montecarlo import (
+        raytrace, choose_route)
 
     dev = compile_scene(scenes.build("box_balls"))
     w, h = 24, 18
@@ -225,22 +174,13 @@ def test_fast_path_ior_grad_documented_gap():
     dirs, tc = jnp.asarray(dirs.reshape(-1, 3)), jnp.asarray(
         tc.reshape(-1, 2))
 
-    def lum(ior, pallas):
+    def lum(ior):
         img = raytrace(dev, origin, dirs, tc, 0, nb_bounces=6,
-                       refract_ind=ior, detach_sampling=True,
-                       use_pallas=pallas, pallas_interpret=pallas,
-                       nondiff_trace=pallas)
+                       refract_ind=ior, detach_sampling=True)
         return img.mean()
 
-    g_dense = float(jax.grad(lambda x: lum(x, False))(jnp.float32(1.35)))
-    g_fast = float(jax.grad(lambda x: lum(x, True))(jnp.float32(1.35)))
-    assert abs(g_dense) > 1e-7, "vacuous: dense IOR gradient is zero"
-    assert abs(g_fast) <= 0.05 * abs(g_dense) + 1e-7, (
-        f"fast-path IOR gradient drifted from its documented ~0 value: "
-        f"fast {g_fast} vs dense {g_dense}")
-
-    # (c) the fit auto-route must pick dense when fitting IOR
-    import inspect
-    from montecarlo_pathtracing_tpu.render import diff
-    src = inspect.getsource(diff.inverse_render_fit)
-    assert "not fit_ior" in src
+    g = float(jax.grad(lum)(jnp.float32(1.35)))
+    assert np.isfinite(g) and abs(g) > 1e-7, g
+    import unittest.mock
+    with unittest.mock.patch.object(jax, "default_backend", lambda: "gpu"):
+        assert choose_route(dev, differentiable=True) == "dense"

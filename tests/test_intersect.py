@@ -117,3 +117,34 @@ def test_group_trace_padding_ignored():
         xs.miss_hit((1,)), O, D, xs.CODE_SPHERE, trf, inv, pid, chunk=2)
     assert int(best.prim[0]) == 0
     assert np.isclose(float(best.dist[0]), 4.0, atol=1e-4)
+
+
+def test_mesh_local_transform_pins_f32_precision():
+    """The mesh-local ray transform is a matmul: at default precision a
+    GPU may run it in TF32 (~3 digits) and bend rays. Every contraction
+    in the mesh fold must ask for HIGHEST."""
+    import jax
+    from montecarlo_pathtracing_tpu.utils.transforms import PRECISION
+
+    O = jnp.zeros((4, 3), jnp.float32)
+    D = jnp.ones((4, 3), jnp.float32)
+    tri = jnp.asarray(np.random.RandomState(0).normal(size=(8, 3)),
+                      jnp.float32)
+    eye = jnp.eye(4, dtype=jnp.float32)
+    jaxpr = jax.make_jaxpr(
+        lambda O, D: xs.trace_mesh_instance(
+            xs.miss_hit((4,)), O, D, eye, eye, 0, tri, tri + 1.0,
+            tri + 2.0, tri_offset=0, chunk=8))(O, D)
+
+    def dots(jp):
+        for eqn in jp.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from dots(sub)
+
+    found = list(dots(jaxpr.jaxpr))
+    assert len(found) >= 3          # O and D transforms + hit point map
+    for eqn in found:
+        prec = eqn.params["precision"]
+        assert prec is not None and all(p == PRECISION for p in prec), prec

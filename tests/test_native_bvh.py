@@ -33,3 +33,18 @@ def test_default_path_prefers_native():
     bvh = build_bvh(c, mn, mx)   # use_native=None -> try native
     py = build_bvh(c, mn, mx, use_native=False)
     np.testing.assert_array_equal(bvh.leaf, py.leaf)
+
+
+def test_library_builds_from_source(tmp_path):
+    """The shared library is built from bvh_builder.cpp (none is
+    committed) and exports the C ABI the loader binds."""
+    import ctypes
+    import shutil
+    if shutil.which("g++") is None:
+        pytest.skip("no C++ toolchain available")
+    path = bvh_native.build_library(str(tmp_path / "libmpt_bvh.so"))
+    lib = ctypes.CDLL(path)
+    lib.mpt_bvh_depth.restype = ctypes.c_int
+    lib.mpt_bvh_depth.argtypes = [ctypes.c_int]
+    assert lib.mpt_bvh_depth(100) == bvh_native._load().mpt_bvh_depth(100)
+    assert hasattr(lib, "mpt_build_bvh")

@@ -2,7 +2,7 @@
 
 The oracle (testing/cpu_ref.py) is a scalar per-pixel transcription of the
 GLSL program with sequential RNG draws; the framework is the masked-SIMD
-megakernel. Identical RNG counters => identical path decisions, so images
+dense integrator. Identical RNG counters => identical path decisions, so images
 agree to f32 reassociation noise except on knife-edge branch pixels (hits
 grazing a silhouette). We assert a high allclose rate, not bit equality."""
 import numpy as np
@@ -62,3 +62,13 @@ def test_parity_box_balls_full_materials():
 def test_parity_mesh_scene():
     """Two-level mesh path (BASELINE config 3, reduced size)."""
     _parity("mesh_demo", 12, 10, spp=1, bounces=3, min_match=0.92)
+
+
+@pytest.mark.parametrize("scene_name", ["menger", "box_no_top", "materials",
+                                        "4boules", "menger_lights",
+                                        "colonnes"])
+def test_parity_analytic_scene(scene_name):
+    """The dense route on the analytic demo scenes the tests above leave
+    out (cylinders, cones, Menger cubes, a ~900-prim colonnade): the
+    reference the whole-pass kernel is held to."""
+    _parity(scene_name, 12, 10, spp=1, bounces=3, min_match=0.94)

@@ -126,3 +126,38 @@ def test_light_intensity_scales_brightness():
     i_dim = Renderer(dim, cfg).run(8)
     i_bright = Renderer(bright, cfg).run(8)
     assert i_bright.mean() > i_dim.mean() * 1.5
+
+
+def test_screen_tc_is_host_ieee(box_scene):
+    """The renderer's per-pixel screen coordinates are the host's IEEE
+    float32 (x+.5)/W bit for bit (W = 30: inexact divisions), whatever
+    device renders: they seed each pixel's RNG stream by their bits."""
+    from montecarlo_pathtracing_tpu.render.camera import camera_rays_np
+    r = _renderer(box_scene, width=30, height=10)
+    tc = np.asarray(r._tc).reshape(-1, 2)[: r._npix][r._inv_perm]
+    _, _, want = camera_rays_np(r.proj, r.view, 30, 10)
+    np.testing.assert_array_equal(tc.view(np.uint32),
+                                  want.reshape(-1, 2).view(np.uint32))
+
+
+def test_one_ulp_of_screen_tc_changes_the_path(box_scene):
+    """Why screen_tc must be exact: one ulp in a pixel's coordinate gives
+    it an unrelated random stream, so every pixel whose path reaches the
+    light within 4 bounces (one in eight here) changes: a device-side
+    division that is an ulp off renders a different image, not a rounding
+    difference."""
+    import jax.numpy as jnp
+    from montecarlo_pathtracing_tpu.models.montecarlo import raytrace
+    from montecarlo_pathtracing_tpu.render.camera import (
+        camera_rays_np, default_rt_camera)
+    proj, view = default_rt_camera(16, 12)
+    o, d, tc = camera_rays_np(proj, view, 16, 12)
+    d, tc = d.reshape(-1, 3), tc.reshape(-1, 2)
+    tc_ulp = np.nextafter(tc, np.float32(1.0))
+    kw = dict(nb_bounces=4, refract_ind=1.0, route="dense")
+    a = np.asarray(raytrace(box_scene, o, jnp.asarray(d), jnp.asarray(tc),
+                            0, **kw))
+    b = np.asarray(raytrace(box_scene, o, jnp.asarray(d),
+                            jnp.asarray(tc_ulp), 0, **kw))
+    changed = np.any(np.abs(a - b) > 1e-3, axis=-1).mean()
+    assert changed > 0.05, changed

@@ -83,22 +83,13 @@ def test_renderer_shard_devices_matches_single(setup):
 
 
 # ---------------------------------------------------------------------------
-# production-route sharding: the Pallas engines TPU users actually run
-# (worklist trace, whole-path megakernel, fused bounce kernel), in
-# interpret mode under pixel sharding — bit-identical to single-device
-# (round-4 verdict Weak #6: multi-chip evidence covered the dense route
-# only)
+# the whole-pass kernel under pixel sharding, the route analytic GPU renders
+# take (interpret mode on the CPU mesh): bit-identical to single-device
 # ---------------------------------------------------------------------------
 
 ROUTES = [
-    ("worklist", "box_diffuse",
-     dict(use_pallas=True, pallas_interpret=True, use_megakernel=False,
-          use_fused=False)),
     ("megakernel", "box_diffuse",
-     dict(use_pallas=True, pallas_interpret=True, use_megakernel=True)),
-    ("fused-bounce", "mesh_demo",
-     dict(use_pallas=True, pallas_interpret=True, use_megakernel=False,
-          use_fused=True)),
+     dict(route="megakernel", pallas_interpret=True)),
 ]
 
 
@@ -113,7 +104,7 @@ def test_production_route_sharded_matches_single(label, scene_name, route):
     tc = tc.reshape(-1, 2)
     mesh = make_mesh(8)
     sdirs, stc, pad = shard_rays(mesh, dirs, tc)
-    fn = make_sharded_pass(mesh, nb_bounces=3, route=route)
+    fn = make_sharded_pass(mesh, nb_bounces=3, **route)
     acc = jnp.zeros((pad, 3), jnp.float32,
                     device=jax.sharding.NamedSharding(
                         mesh, jax.sharding.PartitionSpec("rays")))

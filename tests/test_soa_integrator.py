@@ -35,17 +35,3 @@ def test_soa_matches_aos(scene_name, ior):
         assert close.mean() > 0.98, (
             f"{scene_name} pass {pass_index}: match {close.mean():.3f}")
         assert abs(a.mean() - s.mean()) < 2e-3
-
-
-def test_soa_pallas_interpret_matches_dense():
-    """SoA integrator with the Pallas trace (interpret) == SoA with the
-    dense trace — the full TPU configuration, checked on CPU."""
-    dev, origin, dirs, tc = _rays("box_balls")
-    base = np.asarray(soa(dev, origin, dirs, tc, jnp.int32(0),
-                          nb_bounces=4, refract_ind=jnp.float32(1.3)))
-    fused = np.asarray(soa(dev, origin, dirs, tc, jnp.int32(0),
-                           nb_bounces=4, refract_ind=jnp.float32(1.3),
-                           use_pallas=True, pallas_interpret=True,
-                           use_megakernel=False))
-    close = np.all(np.abs(base - fused) <= 1e-3 + 1e-3 * np.abs(base), -1)
-    assert close.mean() > 0.97, close.mean()
